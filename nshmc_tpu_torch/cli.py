@@ -1,0 +1,198 @@
+"""Experiment entry point: pixel noise-space HMC (port of the `--algo hmc` path
+of nshmc_tpu/cli.py).
+
+Parses the JAX CLI's flags for that path, loads the YAML config, builds
+the ADM U-Net prior and the degradation, synthesizes y0 = H(x) + sigma_0 *
+noise (sigma_0 doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does),
+runs the chains as one batch, and writes {idx}.png, orig_{idx}.png,
+y0_{idx}.png, std_dev_map_{idx}.png, metrics.jsonl and a final
+{"summary": ...} line. Runs on CUDA unless `--device cpu` is given.
+
+Run:  python -m nshmc_tpu_torch.cli --algo hmc --deg inpaint_random \
+          --config configs/ffhq.yaml -i out/
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+import yaml
+
+# flags of the JAX CLI that this port does not implement yet (ROADMAP.md)
+_UNPORTED_FLAGS = {"checkpoint_dir": ("--checkpoint-dir", ""),
+                   "save_epochs": ("--save_epochs", False),
+                   "diagnostics": ("--diagnostics", False),
+                   "image_batch": ("--image_batch", 1), "mesh": ("--mesh", 0),
+                   "adapt": ("--adapt", "none")}
+
+
+def get_parser():
+    p = argparse.ArgumentParser(description="nshmc_tpu_torch sampling CLI")
+    p.add_argument("--config", default="configs/ffhq.yaml")
+    p.add_argument("--algo", default="hmc", help="hmc (the only ported sampler)")
+    p.add_argument("--deg", default="inpaint_random",
+                   help="degradation: inpaint_random | inpaint_box")
+    p.add_argument("--sigma_0", type=float, default=0.05)
+    p.add_argument("--timesteps", type=int, default=3)
+    p.add_argument("--num_timesteps", type=int, default=1000)
+    p.add_argument("--tau", type=float, default=1.0)
+    p.add_argument("--epsilon", type=float, default=0.05)
+    p.add_argument("--m", type=float, default=1.0, help="HMC momentum mass")
+    p.add_argument("--hmc_epochs", type=int, default=60, help="HMC annealing epochs")
+    p.add_argument("--hmc_sampling", type=int, default=20,
+                   help="HMC burn-in and kept-sample epochs")
+    p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("-i", "--image_folder", default="out")
+    p.add_argument("--subset_start", type=int, default=0)
+    p.add_argument("--subset_end", type=int, default=1)
+    p.add_argument("--chains", type=int, default=1,
+                   help="HMC chains, run as the batch axis of each U-Net call")
+    p.add_argument("--ckpt", default="",
+                   help="reference checkpoint (random init if absent)")
+    p.add_argument("--data_path", default="", help="override the config's data.path")
+    p.add_argument("--bf16", action="store_true", default=True)
+    p.add_argument("--no-bf16", dest="bf16", action="store_false")
+    p.add_argument("--verbose", action="store_true", help="per-attempt progress prints")
+    p.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
+    # not ported yet: accepted so that a JAX command line fails with a pointer
+    p.add_argument("--checkpoint-dir", default="", help="not ported (ROADMAP.md)")
+    p.add_argument("--save_epochs", action="store_true", help="not ported (ROADMAP.md)")
+    p.add_argument("--diagnostics", action="store_true", help="not ported (ROADMAP.md)")
+    p.add_argument("--image_batch", type=int, default=1, help="not ported (ROADMAP.md)")
+    p.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP.md)")
+    p.add_argument("--adapt", default="none", help="not ported (ROADMAP.md)")
+    return p
+
+
+def _check_ported(opt):
+    if opt.algo != "hmc":
+        raise NotImplementedError(
+            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; only the pixel "
+            "'hmc' sampler is (ROADMAP.md, Queue 1)")
+    for dest, (flag, default) in _UNPORTED_FLAGS.items():
+        if getattr(opt, dest) != default:
+            raise NotImplementedError(
+                f"{flag} is not ported to nshmc_tpu_torch yet (ROADMAP.md, Queue 1)")
+
+
+def _device(name: str) -> torch.device:
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda, but CUDA is not available on this host; "
+                           "pass --device cpu to run on the CPU")
+    return device
+
+
+def load_config(path):
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def build_pixel_model(cfg, opt, device):
+    from .models.unet import UNetConfig, UNetModel
+
+    mcfg = UNetConfig.from_model_yaml(**cfg["model"])
+    ckpt = opt.ckpt or cfg["model"].get("model_path", "")
+    torch.manual_seed(0)  # the random init (no checkpoint) is reproducible
+    model = UNetModel(mcfg, dtype=torch.bfloat16 if opt.bf16 else torch.float32)
+    if ckpt and os.path.exists(ckpt):
+        sd = torch.load(ckpt, map_location="cpu", weights_only=True)
+        model.load_state_dict(sd, strict=True)
+        print(f"loaded checkpoint {ckpt}")
+    else:
+        # the reference's behaviour on a missing checkpoint: random init
+        print(f"checkpoint {ckpt!r} not found: random init")
+    return model.to(device).eval(), mcfg
+
+
+def run_pixel(opt):
+    from .hmc.engine import HMCConfig, init_chains, make_pixel_loss_fn, run_hmc
+    from .operators import build_operator
+    from .sampling.ddim import make_decoder
+    from .schedules import DDIMSequence, DiffusionSchedule
+    from .utils import images as im
+    from .utils.metrics import RunningStats, psnr, ssim
+
+    _check_ported(opt)
+    device = _device(opt.device)
+    cfg = load_config(opt.config)
+    d = cfg["data"]["image_size"]
+    c = cfg["data"]["channels"]
+    rng = np.random.default_rng(opt.seed)
+
+    model, _ = build_pixel_model(cfg, opt, device)
+    sched = DiffusionSchedule.create(
+        cfg["diffusion"]["beta_schedule"], cfg["diffusion"]["beta_start"],
+        cfg["diffusion"]["beta_end"], cfg["diffusion"]["num_diffusion_timesteps"],
+        device=device)
+    seq = DDIMSequence.create(opt.num_timesteps, opt.timesteps)
+    decode = make_decoder(model, sched, seq)
+    operator = build_operator(opt.deg, c, d, rng, device=device)
+    sigma_0 = 2.0 * opt.sigma_0  # [-1, 1] range scaling
+    hmc_cfg = HMCConfig(sigma_0=sigma_0, tau=opt.tau, epsilon=opt.epsilon, m=opt.m,
+                        epochs=opt.hmc_epochs, sampling=opt.hmc_sampling)
+
+    files = im.list_dataset(opt.data_path or cfg["data"]["path"])
+    files = files[opt.subset_start:opt.subset_end]
+    os.makedirs(opt.image_folder, exist_ok=True)
+    stats = RunningStats()
+    for idx, path in enumerate(files):
+        x01 = im.load_image(path, d)
+        x_orig = im.data_transform(torch.from_numpy(x01).to(device))[None]
+        gen = torch.Generator(device=device).manual_seed(opt.seed + idx)
+        y0 = operator.H_img(x_orig)
+        y0 = y0 + sigma_0 * torch.randn(y0.shape, generator=gen, device=device)
+        y_pinv = operator.H_pinv_img(y0)
+        im.save_image(im.inverse_data_transform(y_pinv[0]),
+                      os.path.join(opt.image_folder, f"y0_{idx}.png"))
+        im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
+
+        orig01 = torch.from_numpy(x01)[None]
+
+        def report(states, rnd):
+            dec01 = im.inverse_data_transform(states.last_decoded[:1]).cpu()
+            print(f"  attempt {rnd}: epoch {int(states.epoch[0])} "
+                  f"PSNR {float(psnr(dec01, orig01)[0]):.2f} "
+                  f"sigma_y {float(states.sigma_y[0]):.3f} "
+                  f"tau {float(states.tau[0]):.3f}")
+
+        t0 = time.time()
+        loss_fn = make_pixel_loss_fn(decode, operator, y0[0])
+        states = init_chains(hmc_cfg, opt.chains, (d, d, c), device, gen)
+        out = run_hmc(loss_fn, hmc_cfg, states, gen,
+                      callback=report if opt.verbose else None)
+        samples01 = im.inverse_data_transform(out.samples.reshape(-1, d, d, c)).cpu()
+        dt = time.time() - t0
+
+        im.save_image(samples01[-1], os.path.join(opt.image_folder, f"{idx}.png"))
+        if samples01.shape[0] > 1:
+            im.save_std_dev_map(samples01,
+                                os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
+        origs = orig01.expand_as(samples01)
+        vals = {"psnr": psnr(samples01, origs).numpy(),
+                "ssim": ssim(samples01, origs).numpy()}
+        stats.update(vals)
+        rec = {"idx": idx, "file": os.path.basename(path), "algo": opt.algo,
+               "deg": opt.deg, "wall_s": round(dt, 2),
+               **{k: float(np.mean(v)) for k, v in vals.items()}}
+        with open(os.path.join(opt.image_folder, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        print(f"[{idx}] {os.path.basename(path)}: "
+              + ", ".join(f"{k}={np.mean(v):.4f}" for k, v in vals.items())
+              + f"  ({dt:.1f}s)")
+
+    summary = stats.summary()
+    print(json.dumps({"summary": summary}))
+    return summary
+
+
+def main(argv=None):
+    return run_pixel(get_parser().parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

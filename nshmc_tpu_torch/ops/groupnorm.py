@@ -1,0 +1,266 @@
+"""Fused GroupNorm + affine + SiLU on channels-last activations (kernel K2).
+
+Port of `nshmc_tpu/ops/groupnorm.py`, which splits the function into two
+Pallas TPU kernels: `_stats_kernel` (:55, per-channel [sum x, sum x^2] in
+fp32, accumulated across row blocks in grid order) and `_norm_kernel` (:75,
+(x - mean) * inv * scale + bias, then SiLU, cast to the input dtype), with
+an O(B*C) group combine in XLA between them. The JAX U-Net computes the same
+function in XLA (`ChanStatsGroupNorm` + silu); this port routes every
+GroupNorm->SiLU site of the U-Net through these kernels, including the
+scale-shift `out_norm` sites: the affine is per (batch, channel), so
+scale = gamma * (1 + s) and bias = beta * (1 + s) + shift cover
+`GN -> h * (1 + s) + shift -> SiLU` with the same kernel.
+
+Hopper translation (Triton, launched only for CUDA tensors):
+  - Bound: bytes. The stats pass reads x once; the apply pass reads x and
+    writes y once (268 MB at (8, 256*256, 128) bf16, ~80 us at 3.35 TB/s);
+    neither does tensor-core work.
+  - Blocks run in parallel in no order, so the TPU's sequential accumulation
+    across grid steps becomes a deterministic two-level reduction: each
+    program writes the fp32 sums of its own row range (no float atomics,
+    so the result is the same on every run), torch adds the partials and
+    does the group combine (var = E[x^2] - E[x]^2, eps 1e-5), then the apply
+    kernel streams x once more.
+  - Each program loads 2-D (rows, 128-channel) tiles: a row of a
+    channels-last tensor is C contiguous values, so loads are coalesced.
+
+`channel_stats` and `normalize_silu` are the wrappers: CUDA tensor ->
+Triton kernel (counted in `.launches`), CPU tensor -> the plain version,
+anything else raises. `groupnorm_silu` is the `torch.autograd.Function`;
+its backward recomputes through the plain version under autograd, as
+`_gn_bwd` recomputes through `groupnorm_silu_xla`.
+"""
+from __future__ import annotations
+
+import functools
+import os
+
+import torch
+
+from . import _build
+
+NUM_GROUPS = 32
+EPS = 1e-5
+_TILE = 8192        # elements per program tile
+_STATS_PROGRAMS = 1024  # target programs in the stats grid
+
+
+@functools.lru_cache(maxsize=None)
+def _kernels():
+    """Define the Triton kernels at first launch (no triton on CPU hosts).
+    Triton's compile cache goes beside the CUDA builds unless the caller
+    chose another place."""
+    os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def stats_kernel(x_ptr, part_ptr, R, C, rows_per_prog, n_rb,
+                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+        rb = tl.program_id(0)
+        cb = tl.program_id(1)
+        b = tl.program_id(2).to(tl.int64)
+        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        acc = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        acc2 = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
+        row0 = rb * rows_per_prog
+        xb = x_ptr + b * R * C
+        for r in range(0, rows_per_prog, BLOCK_R):
+            rows = row0 + r + tl.arange(0, BLOCK_R)
+            mask = (rows < R)[:, None] & cmask[None, :]
+            x = tl.load(xb + rows[:, None].to(tl.int64) * C + cols[None, :],
+                        mask=mask, other=0.0).to(tl.float32)
+            acc += x
+            acc2 += x * x
+        out = part_ptr + ((b * n_rb + rb) * 2) * C
+        tl.store(out + cols, tl.sum(acc, axis=0), mask=cmask)
+        tl.store(out + C + cols, tl.sum(acc2, axis=0), mask=cmask)
+
+    @triton.jit
+    def apply_kernel(x_ptr, y_ptr, mean_ptr, inv_ptr, scale_ptr, bias_ptr,
+                     R, C, affine_sb,
+                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
+        rb = tl.program_id(0)
+        cb = tl.program_id(1)
+        b = tl.program_id(2).to(tl.int64)
+        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
+        cmask = cols < C
+        rows = rb * BLOCK_R + tl.arange(0, BLOCK_R)
+        mask = (rows < R)[:, None] & cmask[None, :]
+        mean = tl.load(mean_ptr + b * C + cols, mask=cmask, other=0.0)
+        inv = tl.load(inv_ptr + b * C + cols, mask=cmask, other=0.0)
+        scale = tl.load(scale_ptr + b * affine_sb + cols, mask=cmask, other=0.0)
+        bias = tl.load(bias_ptr + b * affine_sb + cols, mask=cmask, other=0.0)
+        offs = b * R * C + rows[:, None].to(tl.int64) * C + cols[None, :]
+        x = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        y = (x - mean[None, :]) * inv[None, :]
+        y = y * scale[None, :] + bias[None, :]
+        y = y * tl.sigmoid(y)
+        tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
+
+    return triton, stats_kernel, apply_kernel
+
+
+def _blocks(c: int):
+    block_c = min(128, _next_pow2(c))
+    return block_c, max(1, _TILE // block_c)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (int(n) - 1).bit_length())
+
+
+def _check_cuda(x: torch.Tensor, what: str):
+    if x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"{what}: expects a contiguous (B, rows, C) tensor, "
+                         f"got {tuple(x.shape)} strides {x.stride()}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{what}: dtype {x.dtype}")
+
+
+# --------------------------------------------------------------------------
+# stats: (B, R, C) -> (B, 2, C) fp32 [sum x, sum x^2] per channel (K2a)
+
+
+def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
+
+
+def channel_stats(x: torch.Tensor) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return channel_stats_plain(x)
+    if x.device.type != "cuda":
+        raise ValueError(f"channel_stats: unsupported device {x.device}")
+    _check_cuda(x, "channel_stats")
+    b, r, c = x.shape
+    triton, stats_kernel, _ = _kernels()
+    block_c, block_r = _blocks(c)
+    n_cb = triton.cdiv(c, block_c)
+    row_tiles = triton.cdiv(r, block_r)
+    per_bc = max(1, min(row_tiles, triton.cdiv(_STATS_PROGRAMS, b * n_cb)))
+    rows_per_prog = triton.cdiv(row_tiles, per_bc) * block_r
+    n_rb = triton.cdiv(r, rows_per_prog)
+    part = torch.empty((b, n_rb, 2, c), dtype=torch.float32, device=x.device)
+    with torch.cuda.device(x.device):
+        stats_kernel[(n_rb, n_cb, b)](x, part, r, c, rows_per_prog, n_rb,
+                                      BLOCK_R=block_r, BLOCK_C=block_c,
+                                      num_warps=8)
+    channel_stats.launches += 1
+    return part.sum(dim=1)
+
+
+channel_stats.launches = 0
+
+
+def group_combine(stats: torch.Tensor, rows: int, num_groups: int = NUM_GROUPS,
+                  eps: float = EPS):
+    """(B, 2, C) channel sums -> channel-expanded (mean, rsqrt(var + eps)),
+    each (B, C) fp32, with var = E[x^2] - E[x]^2 over each group
+    (nshmc_tpu/ops/groupnorm.py:104-112)."""
+    b, _, c = stats.shape
+    cg = c // num_groups
+    n = rows * cg
+    g_sum = stats[:, 0].reshape(b, num_groups, cg).sum(-1)
+    g_sum2 = stats[:, 1].reshape(b, num_groups, cg).sum(-1)
+    mean = g_sum / n
+    var = g_sum2 / n - mean**2
+    inv = torch.rsqrt(var + eps)
+    return (mean.repeat_interleave(cg, dim=1).contiguous(),
+            inv.repeat_interleave(cg, dim=1).contiguous())
+
+
+# --------------------------------------------------------------------------
+# apply: SiLU((x - mean) * inv * scale + bias) in x's dtype (K2b)
+
+
+def normalize_silu_plain(x, mean_c, inv_c, scale, bias):
+    """x: (B, R, C); mean_c, inv_c: (B, C); scale, bias: (C,) or (B, C)."""
+    scale = scale.reshape(-1, 1, x.shape[-1]) if scale.dim() == 2 else scale
+    bias = bias.reshape(-1, 1, x.shape[-1]) if bias.dim() == 2 else bias
+    y = (x.float() - mean_c[:, None]) * inv_c[:, None]
+    y = y * scale + bias
+    return (y * torch.sigmoid(y)).to(x.dtype)
+
+
+def normalize_silu(x, mean_c, inv_c, scale, bias):
+    if x.device.type == "cpu":
+        return normalize_silu_plain(x, mean_c, inv_c, scale, bias)
+    if x.device.type != "cuda":
+        raise ValueError(f"normalize_silu: unsupported device {x.device}")
+    _check_cuda(x, "normalize_silu")
+    b, r, c = x.shape
+    if scale.shape != bias.shape or scale.shape not in ((c,), (b, c)):
+        raise ValueError(f"normalize_silu: affine {tuple(scale.shape)} for {tuple(x.shape)}")
+    for t in (mean_c, inv_c):
+        if t.shape != (b, c) or t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"normalize_silu: statistics {tuple(t.shape)} {t.dtype} "
+                             f"on {t.device} for {tuple(x.shape)} on {x.device}")
+    mean_c, inv_c = mean_c.contiguous(), inv_c.contiguous()
+    scale = scale.float().contiguous()
+    bias = bias.float().contiguous()
+    triton, _, apply_kernel = _kernels()
+    block_c, block_r = _blocks(c)
+    y = torch.empty_like(x)
+    grid = (triton.cdiv(r, block_r), triton.cdiv(c, block_c), b)
+    with torch.cuda.device(x.device):
+        apply_kernel[grid](x, y, mean_c, inv_c, scale, bias, r, c,
+                           c if scale.dim() == 2 else 0,
+                           BLOCK_R=block_r, BLOCK_C=block_c, num_warps=8)
+    normalize_silu.launches += 1
+    return y
+
+
+normalize_silu.launches = 0
+
+
+# --------------------------------------------------------------------------
+# the whole function
+
+
+def _as_rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(x.shape[0], -1, x.shape[-1])
+
+
+def groupnorm_silu_plain(x, scale, bias, num_groups: int = NUM_GROUPS,
+                         eps: float = EPS):
+    """Plain PyTorch GN(fp32 stats) -> affine -> SiLU -> x.dtype.
+    x: (B, *spatial, C) channels-last; scale, bias: (C,) or (B, C)."""
+    x3 = _as_rows(x)
+    mean_c, inv_c = group_combine(channel_stats_plain(x3), x3.shape[1],
+                                  num_groups, eps)
+    return normalize_silu_plain(x3, mean_c, inv_c, scale, bias).reshape(x.shape)
+
+
+def _groupnorm_silu_forward(x, scale, bias, num_groups, eps):
+    x3 = _as_rows(x).contiguous()
+    mean_c, inv_c = group_combine(channel_stats(x3), x3.shape[1], num_groups, eps)
+    return normalize_silu(x3, mean_c, inv_c, scale, bias).reshape(x.shape)
+
+
+class _GroupNormSiLU(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps):
+        ctx.save_for_backward(x, scale, bias)
+        ctx.num_groups, ctx.eps = num_groups, eps
+        return _groupnorm_silu_forward(x, scale, bias, num_groups, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, scale, bias = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip((x, scale, bias), ctx.needs_input_grad[:3])]
+        with torch.enable_grad():
+            y = groupnorm_silu_plain(*inputs, ctx.num_groups, ctx.eps)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None, None)
+
+
+def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   num_groups: int = NUM_GROUPS, eps: float = EPS) -> torch.Tensor:
+    """Differentiable GN+affine+SiLU on channels-last x: (B, *spatial, C).
+    scale, bias: fp32, (C,) or per (batch, channel) (B, C)."""
+    return _GroupNormSiLU.apply(x, scale, bias, num_groups, eps)
