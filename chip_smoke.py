@@ -20,7 +20,12 @@ It builds the port's kernels from the sources in this checkout and then:
      plain version and the closest single PyTorch call with CUDA events;
   4. compares a flagship-width U-Net forward and the pixel loss's input
      gradient through the 3-step decoder (f32, one chain) with the CPU;
-  5. runs the port's CLI end to end on configs/ffhq.yaml.
+  5. runs the port's CLI end to end on configs/ffhq.yaml;
+  6. drives the memory-system probe path (nshmc_tpu_torch.scripts.stream_probe)
+     at (8, 65536, 128) bf16: holds each probe kernel P1-P4 against its plain
+     version, sets their launch counts to 0, times every probe case and reads
+     the counts; then runs the GroupNorm microbench
+     (nshmc_tpu_torch.scripts.membench2) at (8, 256, 256, 128).
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}.
@@ -38,8 +43,16 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 CHAINS = 8
 ATTEMPTS = 3
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+PROBE_ITERS = 30     # stream probe: calls per timed case
+# Edge shapes of the probe wrappers' range (C a multiple of 8 up to 2048): a
+# partial 64-channel block (P4), row layouts that leave threads idle (P1, P2),
+# C = 2048; then, for the stats kernels only (P3 needs R % 2048 == 0), row
+# counts that end inside a 1,024-row slab and a 128-row tile.
+PROBE_EDGE_SHAPES = ((1, 2048, 32), (3, 6144, 96), (2, 4096, 224), (1, 2048, 2048))
+STATS_EDGE_SHAPES = ((2, 3000, 8), (1, 100, 72), (3, 1037, 136), (1, 17, 2048))
+MEMBENCH_ITERS = 10  # GroupNorm microbench: calls per timed case
+MAIN_PATH_KERNELS = ("attention", "gn_stats", "gn_apply")  # P1-P4 run on the probe path only
 
 
 def fail(msg):
@@ -59,25 +72,22 @@ def gpu_name_and_power():
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` launches, by CUDA events."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+def time_ms(fn, iters=20, warmup=3):
+    """Mean device ms of fn() over `iters` launches after `warmup`, by CUDA
+    events (the probe scripts' timer)."""
+    import torch
+    from nshmc_tpu_torch.scripts._bench import time_s
+
+    return 1e3 * time_s(fn, torch.device("cuda"), iters, warmup)
 
 
 def bound_ms(bytes_moved, ops, dtype_name):
-    """Least time for the work: the larger of bytes over HBM bandwidth and
-    operations over the peak rate of their type."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    """Least time for the work: the larger of bytes over HBM bandwidth (the
+    data sheet's, as the probe scripts use) and operations over the peak
+    rate of their type."""
+    from nshmc_tpu_torch.scripts._bench import HBM_GB_S
+
+    t_bytes = bytes_moved / (HBM_GB_S * 1e9)
     t_ops = ops / PEAK_OPS[dtype_name]
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -123,7 +133,8 @@ def build_kernels(torch, build, gn):
             errors.append(f"{src}: {e}")
 
     t0 = time.time()
-    threads = [threading.Thread(target=nvcc, args=(s,)) for s in ("attention.cu",)]
+    threads = [threading.Thread(target=nvcc, args=(s,))
+               for s in ("attention.cu", "stream_probe.cu")]
     for t in threads:
         t.start()
     x = torch.randn(2, 64, 64, device="cuda")
@@ -205,6 +216,74 @@ def trace_eval(torch, engine, loss_fn, x, out_dir):
     prof.export_chrome_trace(os.path.join(out_dir, "trace_main_path.json"))
 
 
+def phase_probes(torch, shape):
+    """Phase 6: the memory-system probe path at `shape` (B, R, C) bf16 and
+    the GroupNorm microbench. Returns {kernel: record} for P1-P4, with the
+    launches counted over the probe's timed cases."""
+    from nshmc_tpu_torch.ops import groupnorm as gn
+    from nshmc_tpu_torch.ops import stream_probe as sp
+    from nshmc_tpu_torch.scripts import membench2, stream_probe
+
+    t0 = time.time()
+    x, scale, bias = stream_probe.make_inputs(shape)
+    checks = stream_probe.check_kernels(x, scale, bias)
+    for name, res in checks.items():
+        print(f"probe check {name} {shape} bf16: max|kernel-plain| {res['max_abs_err']:.3e} "
+              f"(tol {res['tolerance']}): {'ok' if res['ok'] else 'DISAGREES'}")
+    check(all(r["ok"] for r in checks.values()), f"probe kernels disagree: {checks}")
+    for edge in PROBE_EDGE_SHAPES:
+        res = stream_probe.check_kernels(*stream_probe.make_inputs(edge))
+        check(all(v["ok"] for v in res.values()), f"probe kernels disagree at {edge}: {res}")
+    for edge in STATS_EDGE_SHAPES:
+        x_e = stream_probe.make_inputs(edge)[0]
+        for fn in (sp.probe_stats, sp.probe_mma_stats):
+            err, ok = stream_probe.stats_check(fn(x_e), gn.channel_stats_plain(x_e))
+            check(ok, f"{fn.__name__} disagrees at {edge}: max|d| {err}")
+    print(f"probe kernels agree at the edge shapes {PROBE_EDGE_SHAPES} and, P1 and P4, "
+          f"{STATS_EDGE_SHAPES}")
+
+    for f in sp.KERNELS:
+        f.launches = 0
+    timed = stream_probe.time_cases(x, scale, bias, PROBE_ITERS)
+    launches = {f.__name__: f.launches for f in sp.KERNELS}
+    for name, res in timed.items():
+        print(f"probe case {json.dumps({'case': name, **res})}")
+    print(f"probe path kernel launches ({PROBE_ITERS} timed calls + warm-up per case): "
+          f"{launches}")
+    for k, v in launches.items():
+        check(v > 0, f"probe kernel {k} was never launched on the probe path")
+
+    b, r, c = shape
+    n = b * r * c
+    ms = lambda case: 1e3 * timed[case]["s_per_iter"]
+    touch_plain = time_ms(lambda: sp.touch_plain(x))
+    stats_bytes = n * 2 + b * 2 * c * 4
+    rows = {  # kernel: (case, plain ms, library ms, bytes, operations, their type)
+        "probe_stats": ("cuda_stats", ms("torch_stats"), None, stats_bytes, 3 * n, "float32"),
+        "probe_apply": ("cuda_apply", ms("torch_apply"), None,
+                        2 * n * 2 + (2 * b * c + 2 * c) * 4, 8 * n, "float32"),
+        "probe_touch": ("cuda_dma_read", touch_plain, None, n * 2 + b * c * 4, 0, "float32"),
+        # three m16n8k16 products (x, hi, lo) per 16 rows x 8 channels
+        "probe_mma_stats": ("cuda_mma_stats", ms("torch_stats"), ms("torch_matmul_stats"),
+                            stats_bytes, 96 * n, "bfloat16"),
+    }
+    records = {}
+    for name, (case, plain, lib, nbytes, ops, dtype) in rows.items():
+        bms, by = bound_ms(nbytes, ops, dtype)
+        records[name] = dict(ms=ms(case), plain_ms=plain, library_ms=lib, bound_ms=bms,
+                             bound_by=by, max_abs_err=checks[name]["max_abs_err"],
+                             tolerance=checks[name]["tolerance"], shape=list(shape),
+                             dtype="bfloat16", launches=launches[name])
+        print(f"{name} {shape} bf16: kernel {records[name]['ms']:.4f} ms, plain {plain:.4f} ms, "
+              f"library {'none' if lib is None else f'{lib:.4f} ms'}, bound {bms:.4f} ms ({by})")
+
+    bench = membench2.main([str(b), str(math.isqrt(r)), str(c), str(MEMBENCH_ITERS)])
+    check(all(v["s_per_iter"] for v in bench["cases"].values()),
+          "GroupNorm microbench left a case untimed")
+    print(f"phase 6 (stream probe + GroupNorm microbench) took {time.time() - t0:.1f} s")
+    return records
+
+
 def main():
     args = sys.argv[1:]
     trace_dir = None
@@ -228,6 +307,7 @@ def main():
         from nshmc_tpu_torch.ops import _build as build
         from nshmc_tpu_torch.ops import attention as attn
         from nshmc_tpu_torch.ops import groupnorm as gn
+        from nshmc_tpu_torch.ops import stream_probe as sp
         from nshmc_tpu_torch.sampling import ddim
         from nshmc_tpu_torch import operators as ops_mod
         from nshmc_tpu_torch import schedules as sched_mod
@@ -307,8 +387,9 @@ def main():
         trace_eval(torch, engine, loss_fn, state.x, trace_dir)
         return
 
+    # the main path's kernels, and the probe kernels, which it must not run
     counters = {"attention": attn.attention_forward, "gn_stats": gn.channel_stats,
-                "gn_apply": gn.normalize_silu}
+                "gn_apply": gn.normalize_silu, **{f.__name__: f for f in sp.KERNELS}}
     for f in counters.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -342,7 +423,10 @@ def main():
           f"(per energy+grad eval: "
           f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} })")
     for k, v in launches.items():
-        check(v > 0, f"kernel {k} was never launched on the main path")
+        if k in MAIN_PATH_KERNELS:
+            check(v > 0, f"kernel {k} was never launched on the main path")
+        else:
+            check(v == 0, f"probe kernel {k} was launched {v} times on the main path")
     check(bool(torch.isfinite(out.x).all()), "chain state is not finite")
     check(int(out.attempts.min()) == ATTEMPTS, f"attempts {out.attempts.tolist()}")
     check(float(out.last_decoded.abs().max()) <= 1.0, "decoded images leave [-1, 1]")
@@ -394,10 +478,10 @@ def main():
                        for a, b_ in zip(gk, gp))
             gtol = 1e-4 if dt == torch.float32 else 3e-2
             dname = str(dt).split(".")[1]
-            ms = time_ms(torch, lambda: attn.attention_forward(q, k, v))
-            plain = time_ms(torch, lambda: attn.attention_plain(q, k, v))
+            ms = time_ms(lambda: attn.attention_forward(q, k, v))
+            plain = time_ms(lambda: attn.attention_plain(q, k, v))
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = time_ms(torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, scale=1.0 / math.sqrt(ch)))
             nbytes = 4 * b * t * h * ch * q.element_size()
             bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch, dname)
@@ -452,14 +536,14 @@ def main():
         sc = 1 + 0.3 * torch.randn((b, cc), generator=g, device=dev)
         bi = 0.3 * torch.randn((b, cc), generator=g, device=dev)
         mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
-        st_ms = time_ms(torch, lambda: gn.channel_stats(x))
-        st_plain = time_ms(torch, lambda: gn.channel_stats_plain(x))
-        ap_ms = time_ms(torch, lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi))
-        ap_plain = time_ms(torch, lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi))
-        whole = time_ms(torch, lambda: gn.groupnorm_silu(x, sc, bi))
+        st_ms = time_ms(lambda: gn.channel_stats(x))
+        st_plain = time_ms(lambda: gn.channel_stats_plain(x))
+        ap_ms = time_ms(lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi))
+        ap_plain = time_ms(lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi))
+        whole = time_ms(lambda: gn.groupnorm_silu(x, sc, bi))
         x4 = x.reshape(b, int(math.isqrt(r)), -1, cc).permute(0, 3, 1, 2)  # NCHW channels_last
         w1, b1 = sc[0].to(x.dtype), bi[0].to(x.dtype)
-        lib = time_ms(torch, lambda: torch.nn.functional.silu(
+        lib = time_ms(lambda: torch.nn.functional.silu(
             torch.nn.functional.group_norm(x4, 32, w1, b1, 1e-5)))
         n = b * r * cc
         st_b, st_by = bound_ms(n * 2 + b * 2 * cc * 4, 3 * n, "float32")
@@ -533,17 +617,33 @@ def main():
         print(f"CLI (configs/ffhq.yaml, 2 chains, cuda) in {time.time() - t0:.1f} s: "
               f"{lines[-1]}")
 
+    # ---- 6. the memory-system probes, off the sampling path ---------------------------
+    for name, rec_ in phase_probes(torch, (CHAINS, d * d, mcfg.model_channels)).items():
+        rec(name, **rec_)
+
+    probe_src = "nshmc_tpu_torch/csrc/stream_probe.cu"
     sources = {"attention": ("cuda", "nshmc_tpu_torch/csrc/attention.cu",
                              "nshmc_tpu/ops/attention.py:44"),
                "gn_stats": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
                             "nshmc_tpu/ops/groupnorm.py:55"),
                "gn_apply": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
-                            "nshmc_tpu/ops/groupnorm.py:75")}
+                            "nshmc_tpu/ops/groupnorm.py:75"),
+               "probe_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:43"),
+               "probe_apply": ("cuda", probe_src, "scripts/pallas_stream_probe.py:73"),
+               "probe_touch": ("cuda", probe_src, "scripts/pallas_stream_probe.py:183"),
+               "probe_mma_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:198")}
     kernels = []
     for name, (route, src, replaces) in sources.items():
         r_ = records[name]
+        on_main = name in MAIN_PATH_KERNELS
+        # `launches`: the count of the kernel's own path (the flagship HMC run,
+        # or the probe's timed cases for P1-P4), each set to 0 just before it;
+        # `main_path_launches`: every kernel's count over the flagship HMC run
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
-                        "launches": launches[name], "max_abs_err": r_["max_abs_err"],
+                        "launches": launches[name] if on_main else r_["launches"],
+                        "path": "flagship HMC" if on_main else "stream probe",
+                        "main_path_launches": launches[name],
+                        "max_abs_err": r_["max_abs_err"],
                         "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"], "library_ms": r_["library_ms"],
                         "shape": r_["shape"], "dtype": r_["dtype"],
