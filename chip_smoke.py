@@ -17,7 +17,11 @@ It builds the port's kernels from the sources in this checkout and then:
      (0.1, 0.01) switch and the sample write at the flagship shape;
   3. calls each kernel's wrapper at the shapes the main path gave it, holds
      it against its plain version (stated tolerances) and times it, its
-     plain version and the closest single PyTorch call with CUDA events;
+     plain version and the closest single PyTorch call with CUDA events
+     (K1's from CUDA graphs, device time without the host's launch cost):
+     K1 (bf16 on tensor cores, f32 scalar) also at the latent U-Net's shape
+     and at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
+     and both affine forms (the checks of nshmc_tpu_torch.scripts.kernel_check);
   4. compares a flagship-width U-Net forward and the pixel loss's input
      gradient through the 3-step decoder (f32, one chain) with the CPU;
   5. runs the port's CLI end to end on configs/ffhq.yaml;
@@ -52,7 +56,10 @@ PROBE_ITERS = 30     # stream probe: calls per timed case
 PROBE_EDGE_SHAPES = ((1, 2048, 32), (3, 6144, 96), (2, 4096, 224), (1, 2048, 2048))
 STATS_EDGE_SHAPES = ((2, 3000, 8), (1, 100, 72), (3, 1037, 136), (1, 17, 2048))
 MEMBENCH_ITERS = 10  # GroupNorm microbench: calls per timed case
-MAIN_PATH_KERNELS = ("attention", "gn_stats", "gn_apply")  # P1-P4 run on the probe path only
+MAIN_PATH_KERNELS = ("attention", "gn_stats", "gn_apply", "gn_backward")  # P1-P4: probe path only
+# K1 edge shapes (B, T, H, ch), checked in bf16 and f32: ragged query and key tiles
+ATTN_EDGE_SHAPES = tuple((2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64))
+GN_BWD_OPS = 40  # fp32 operations per element of the GN+SiLU backward (two passes of ~20)
 
 
 def fail(msg):
@@ -79,6 +86,14 @@ def time_ms(fn, iters=20, warmup=3):
     from nshmc_tpu_torch.scripts._bench import time_s
 
     return 1e3 * time_s(fn, torch.device("cuda"), iters, warmup)
+
+
+def time_ms_graph(fn):
+    """Mean device ms of fn() from CUDA graphs of 20 calls, the host's launch
+    cost left out (the probe scripts' graph timer)."""
+    from nshmc_tpu_torch.scripts._bench import time_s_graph
+
+    return 1e3 * time_s_graph(fn)
 
 
 def bound_ms(bytes_moved, ops, dtype_name):
@@ -134,7 +149,7 @@ def build_kernels(torch, build, gn):
 
     t0 = time.time()
     threads = [threading.Thread(target=nvcc, args=(s,))
-               for s in ("attention.cu", "stream_probe.cu")]
+               for s in ("attention.cu", "groupnorm_bwd.cu", "stream_probe.cu")]
     for t in threads:
         t.start()
     x = torch.randn(2, 64, 64, device="cuda")
@@ -149,9 +164,8 @@ def build_kernels(torch, build, gn):
     torch.cuda.synchronize()
     check(not errors, "kernel build failed:\n" + "\n".join(errors))
     for src, rep in reports.items():
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  [{src}] {line.strip()}")
+        for line in build.ptxas_summary(rep):
+            print(f"  [{src}] {line}")
     print(f"kernels built in {time.time() - t0:.1f} s (nvcc -gencode arch=compute_90a,"
           f"code=sm_90a; Triton JIT)")
 
@@ -309,6 +323,7 @@ def main():
         from nshmc_tpu_torch.ops import groupnorm as gn
         from nshmc_tpu_torch.ops import stream_probe as sp
         from nshmc_tpu_torch.sampling import ddim
+        from nshmc_tpu_torch.scripts import kernel_check as kc
         from nshmc_tpu_torch import operators as ops_mod
         from nshmc_tpu_torch import schedules as sched_mod
     except ImportError as e:
@@ -389,7 +404,8 @@ def main():
 
     # the main path's kernels, and the probe kernels, which it must not run
     counters = {"attention": attn.attention_forward, "gn_stats": gn.channel_stats,
-                "gn_apply": gn.normalize_silu, **{f.__name__: f for f in sp.KERNELS}}
+                "gn_apply": gn.normalize_silu, "gn_backward": gn.groupnorm_silu_backward,
+                **{f.__name__: f for f in sp.KERNELS}}
     for f in counters.values():
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -422,6 +438,9 @@ def main():
     print(f"main path kernel launches: {launches} "
           f"(per energy+grad eval: "
           f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} })")
+    print(f"GN+SiLU backward launches per U-Net forward: "
+          f"{launches['gn_backward'] / (3 * evals * len(steps)):.2f} "
+          f"(expected one per GN+SiLU site: {n_gn})")
     for k, v in launches.items():
         if k in MAIN_PATH_KERNELS:
             check(v > 0, f"kernel {k} was never launched on the main path")
@@ -459,17 +478,8 @@ def main():
     attn_shapes = sorted(attn_sites) + [(CHAINS, 1024, 8, 32)]  # + the latent U-Net's
     for (b, t, h, ch) in attn_shapes:
         for dt in (torch.bfloat16, torch.float32):
-            qkv = torch.randn((b, t, h, 3, ch), generator=g, device=dev).to(dt)
-            q, k, v = (qkv[..., i, :] for i in range(3))
-            o_k = attn.attention_forward(q, k, v)
-            o_p = attn.attention_plain(q, k, v)
-            diff = (o_k.float() - o_p.float()).abs()
-            err = float(diff.max())
-            if dt == torch.float32:
-                tol, ok = "1e-4", err <= 1e-4
-            else:  # one bf16 ulp of each element (<= 2^-7 |y|), plus 2^-12
-                tol, ok = "2^-7 |y| + 2^-12", bool((diff <= 2 ** -7 * o_p.float().abs()
-                                                    + 2 ** -12).all())
+            q, k, v = kc.qkv_inputs((b, t, h, ch), dt, g, dev)
+            res = kc.attention_check(q, k, v)
             # gradient through the autograd.Function vs autograd of the plain version
             qs = [x.detach().float().to(dt).requires_grad_(True) for x in (q, k, v)]
             gk = torch.autograd.grad((attn.attention(*qs).float() ** 2).sum(), qs)
@@ -478,21 +488,37 @@ def main():
                        for a, b_ in zip(gk, gp))
             gtol = 1e-4 if dt == torch.float32 else 3e-2
             dname = str(dt).split(".")[1]
-            ms = time_ms(lambda: attn.attention_forward(q, k, v))
-            plain = time_ms(lambda: attn.attention_plain(q, k, v))
+            # device ms per call from CUDA graphs of 20 calls (the host's
+            # launch cost left out: at these sizes it exceeds the kernels'),
+            # and the kernel's eager ms per call, host included
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            ms = time_ms_graph(lambda: attn.attention_forward(q, k, v))
+            plain = time_ms_graph(lambda: attn.attention_plain(q, k, v))
+            lib = time_ms_graph(lambda: torch.nn.functional.scaled_dot_product_attention(
                 qt, kt, vt, scale=1.0 / math.sqrt(ch)))
+            eager = time_ms(lambda: attn.attention_forward(q, k, v))
             nbytes = 4 * b * t * h * ch * q.element_size()
             bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch, dname)
-            print(f"K1 attention {(b, t, h, ch)} {dname}: max|kernel-plain| {err:.2e} "
-                  f"(tol {tol}), grad rel err {gerr:.2e} (tol {gtol}); kernel {ms:.4f} ms, "
-                  f"plain {plain:.4f} ms, sdpa {lib:.4f} ms, bound {bms:.4f} ms ({by})")
-            check(ok and gerr <= gtol, f"attention {(b, t, h, ch)} {dname} disagrees")
+            print(f"K1 attention {(b, t, h, ch)} {dname}: {kc.attention_summary(res)}; grad rel "
+                  f"err {gerr:.2e} (tol {gtol}); device ms per call: kernel {ms:.4f}, plain "
+                  f"{plain:.4f}, sdpa {lib:.4f} (kernel/sdpa {ms / lib:.2f}), bound {bms:.4f} "
+                  f"({by}); eager kernel call {eager:.4f} ms")
+            check(res["ok"] and gerr <= gtol, f"attention {(b, t, h, ch)} {dname} disagrees")
             if (b, t, h, ch, dt) == (CHAINS, 256, 8, 64, torch.bfloat16):
                 rec("attention", ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                    bound_by=by, max_abs_err=err, tolerance=tol,
+                    bound_by=by, max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
                     shape=[b, t, h, ch], dtype=dname)
+    edge = {}
+    for shape in ATTN_EDGE_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            res = kc.attention_check(*kc.qkv_inputs(shape, dt, g, dev))
+            check(res["ok"], f"attention {shape} {dt}: {kc.attention_summary(res)}")
+            worst_ = edge.setdefault(dt, res)
+            if res["max_abs_err"] > worst_["max_abs_err"]:
+                edge[dt] = res
+    print(f"K1 agrees at the edge shapes (2, T, 2, ch), T in (1, 16, 100, 1000), ch in "
+          f"(16, 32, 64); worst bf16: {kc.attention_summary(edge[torch.bfloat16])}; worst "
+          f"f32: {kc.attention_summary(edge[torch.float32])}")
 
     gn_shapes = {}  # (B, rows, C) -> GN+SiLU sites per U-Net forward, both forms
     for (b, r, cc, _), n_sites in gn_sites.items():
@@ -563,6 +589,48 @@ def main():
             print(f"K2 whole GN+SiLU at {(b, r, cc)} bf16: {whole:.4f} ms, "
                   f"F.group_norm+F.silu {lib:.4f} ms")
 
+    bwd_worst, bwd_hot = {}, {}  # dtype -> (max dx err, max affine rel err); shape -> result
+    for (b, r, cc) in sorted(gn_shapes):  # K2c against its plain version
+        for dt in (torch.bfloat16, torch.float32):
+            for form in kc.AFFINE_FORMS:
+                res = kc.gn_backward_check(*kc.gn_inputs((b, r, cc), dt, form, g, dev))
+                check(res["ok"], f"GN+SiLU backward {(b, r, cc)} {dt} {form}: {res}")
+                dx_w, af_w = bwd_worst.get(dt, (0.0, 0.0))
+                bwd_worst[dt] = (max(dx_w, res["dx_err"]), max(af_w, res["affine_rel_err"]))
+                if (dt, form) == (torch.bfloat16, "per_batch_channel"):
+                    bwd_hot[(b, r, cc)] = res
+    print(f"K2c GN+SiLU backward: {len(gn_shapes)} main-path shapes x (bf16, f32) x "
+          f"(per-channel, per-(batch, channel) affine) agree: worst dx err bf16 "
+          f"{bwd_worst[torch.bfloat16][0]:.2e} (tol 2^-7 |dx| + 2^-12 max|dx|), f32 "
+          f"{bwd_worst[torch.float32][0]:.2e} (tol 1e-4); dscale/dbias worst rel err "
+          f"{max(v[1] for v in bwd_worst.values()):.2e} (tol 1e-5)")
+    for (b, r, cc), n_sites in sorted(gn_shapes.items()):  # K2c times at each shape, bf16
+        x, gk, mean_c, inv_c, sc, bi = kc.gn_inputs((b, r, cc), torch.bfloat16,
+                                                    "per_batch_channel", g, dev)
+        bw_ms = time_ms(lambda: gn.groupnorm_silu_backward(x, gk, mean_c, inv_c, sc, bi))
+        bw_plain = time_ms(lambda: gn.groupnorm_silu_backward_plain(x, gk, mean_c, inv_c, sc, bi))
+        # yardstick: the backward of F.group_norm + F.silu alone, a per-channel
+        # affine and two library backwards: not the same function
+        side = math.isqrt(r)
+        x4 = x.reshape(b, side, side, cc).permute(0, 3, 1, 2).detach().requires_grad_(True)
+        y4 = torch.nn.functional.silu(torch.nn.functional.group_norm(
+            x4, 32, sc[0].to(x.dtype), bi[0].to(x.dtype), 1e-5))
+        g4 = gk.reshape(b, side, side, cc).permute(0, 3, 1, 2)
+        bw_lib = time_ms(lambda: torch.autograd.grad(y4, x4, g4, retain_graph=True))
+        n = b * r * cc
+        small = (2 * b * cc + 2 * b * cc + b * cc * 2) * 4  # stats, affine in; its grads out
+        bw_b, bw_by = bound_ms(3 * n * 2 + small, GN_BWD_OPS * n, "float32")
+        floor5 = bound_ms(5 * n * 2, 0, "float32")[0]  # the two-read design's own floor
+        print(f"K2c {(b, r, cc)} bf16, {n_sites} sites/forward: backward {bw_ms:.4f} ms "
+              f"(plain {bw_plain:.4f}, bound {bw_b:.4f} ({bw_by}), five-pass floor "
+              f"{floor5:.4f}); F.group_norm+F.silu backward {bw_lib:.4f} ms")
+        if (b, r, cc) == (CHAINS, d * d, mcfg.model_channels):
+            res = bwd_hot[(b, r, cc)]
+            rec("gn_backward", ms=bw_ms, plain_ms=bw_plain, library_ms=bw_lib, bound_ms=bw_b,
+                bound_by=bw_by, max_abs_err=res["dx_err"], tolerance=res["tolerance"],
+                shape=[b, r, cc], dtype="bfloat16")
+        del x4, y4
+
     # ---- 4. flagship width, f32, one chain: card vs CPU ------------------------
     # a U-Net forward, then the pixel loss and its input gradient through the
     # 3-step decoder (three U-Nets and their backward, remat included)
@@ -628,6 +696,8 @@ def main():
                             "nshmc_tpu/ops/groupnorm.py:55"),
                "gn_apply": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
                             "nshmc_tpu/ops/groupnorm.py:75"),
+               "gn_backward": ("cuda", "nshmc_tpu_torch/csrc/groupnorm_bwd.cu",
+                               "nshmc_tpu/ops/groupnorm.py:150 _gn_bwd"),
                "probe_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:43"),
                "probe_apply": ("cuda", probe_src, "scripts/pallas_stream_probe.py:73"),
                "probe_touch": ("cuda", probe_src, "scripts/pallas_stream_probe.py:183"),

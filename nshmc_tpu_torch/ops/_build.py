@@ -12,6 +12,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -72,6 +73,26 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(path)
             _libs[source] = lib
         return lib
+
+
+def ptxas_summary(report: str) -> list[str]:
+    """One line per kernel of an `nvcc -Xptxas -v` report: its name with
+    template arguments, registers, spills and shared memory."""
+    lines, name = [], "?"
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            mangled = entry.group(1)
+            m = re.search(r"[A-Za-z_]+_kernel", mangled)
+            tail = mangled[m.end():].split("Ev")[0] if m else ""
+            args = (["bf16"] if "__nv_bfloat16" in tail else ["f32"] if tail.startswith("If")
+                    else []) + re.findall(r"Li(\d+)E", tail)
+            name = (m.group(0) if m else mangled) + (f"<{','.join(args)}>" if args else "")
+        elif "spill" in line:
+            lines.append(f"{name}: {line.strip()}")
+        elif "registers" in line:
+            lines.append(f"{name}: {line.split(':', 1)[-1].strip()}")
+    return lines
 
 
 def check(rc: int, what: str) -> None:

@@ -6,19 +6,25 @@ softmax are fp32, the weights are cast to v's dtype before the PV product.
 
   - `attention_plain`: the plain PyTorch version, the numerics of the Pallas
     kernel `_attn_kernel` (nshmc_tpu/ops/attention.py:44). CPU tensors only.
-  - `attention_forward`: the wrapper. A CUDA tensor launches the
-    hand-written kernel `csrc/attention.cu` (see its header for what bounds
-    it on Hopper and how its design answers); a CPU tensor takes the plain
-    version; anything else raises. `attention_forward.launches` counts
-    kernel launches.
+  - `attention_forward`: the wrapper. A CUDA tensor launches a
+    hand-written kernel of `csrc/attention.cu` (see its header for what
+    bounds it on Hopper and how its design answers), chosen by dtype: bf16
+    runs the tensor-core kernel (`mma.sync`, `cp.async`, `ldmatrix`), f32
+    the scalar-FMA kernel, since tensor cores would need TF32 for f32 and
+    break its 1e-4 tolerance. A CPU tensor takes the plain version;
+    anything else raises. `attention_forward.launches` counts kernel
+    launches.
   - `attention`: the `torch.autograd.Function` around the wrapper. Its
     backward recomputes the softmax in plain torch ops, a line-for-line
     translation of `_attention_bwd` (nshmc_tpu/ops/attention.py:108-121),
     which is XLA code on the TPU too; the residuals are q, k, v only.
 
 q, k and v arrive as strided views of one (B, T, H, 3, ch) qkv tensor. The
-kernel takes their common strides, so the split costs no copy; views with
-differing strides are made contiguous first.
+kernels take their common strides, so the split costs no copy; views with
+differing strides are made contiguous first. The tensor-core kernel copies
+16-byte row chunks, so in bf16 the wrapper checks that the three pointers
+are 16-byte aligned and the strides multiples of 8 elements, and raises
+otherwise.
 """
 from __future__ import annotations
 
@@ -40,33 +46,46 @@ def _scale_in(x: torch.Tensor, scale: float) -> torch.Tensor:
     return x * torch.tensor(scale, dtype=x.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C launcher of csrc/attention.cu, built and loaded at first use."""
-    fn = _build.load("attention.cu").nshmc_attention_fwd
+def declare(fn):
+    """Declare the argument and result types of `nshmc_attention_fwd` of a
+    library built from csrc/attention.cu."""
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 3 \
         + [ctypes.c_float, ctypes.c_void_p]
     return fn
 
 
-def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (B, T, H, ch) -> (B, T, H, ch), plain PyTorch."""
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """The C launcher of csrc/attention.cu, built and loaded at first use."""
+    return declare(_build.load("attention.cu").nshmc_attention_fwd)
+
+
+def attention_weights_plain(q: torch.Tensor, k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """The normalized weights (B, H, T, T), fp32 logits and softmax, cast to
+    `dtype` (v's) before the PV product."""
     scale = 1.0 / math.sqrt(math.sqrt(q.shape[-1]))
     logits = torch.einsum("bthc,bshc->bhts", _scale_in(q, scale).float(),
                           _scale_in(k, scale).float())
-    weights = torch.softmax(logits, dim=-1).to(v.dtype)
+    return torch.softmax(logits, dim=-1).to(dtype)
+
+
+def attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """q, k, v: (B, T, H, ch) -> (B, T, H, ch), plain PyTorch."""
+    weights = attention_weights_plain(q, k, v.dtype)
     out = torch.einsum("bhts,bshc->bthc", weights.float(), v.float())
     return out.to(q.dtype)
 
 
-def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Forward attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
-    if q.device.type == "cpu":
-        return attention_plain(q, k, v)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention: unsupported device {q.device}")
+@functools.lru_cache(maxsize=None)
+def _kernel_scale(ch: int, dtype: torch.dtype) -> float:
+    """ch^-1/4 rounded to dtype, as the kernels take it."""
+    return float(torch.tensor(1.0 / math.sqrt(math.sqrt(ch)), dtype=dtype))
+
+
+def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Check CUDA q, k, v and run `fn`, a C launcher with the interface of
+    `nshmc_attention_fwd`; counts no launch."""
     if not (q.shape == k.shape == v.shape and q.dim() == 4):
         raise ValueError(f"attention: shapes {q.shape} {k.shape} {v.shape}")
     if not (q.dtype == k.dtype == v.dtype and q.dtype in _DTYPES):
@@ -78,14 +97,29 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if not (q.device == k.device == v.device):
         raise ValueError("attention: q, k, v on different devices")
-    out = torch.empty((b, t, h, ch), dtype=q.dtype, device=q.device)
-    scale = float(torch.tensor(1.0 / math.sqrt(math.sqrt(ch)), dtype=q.dtype))
     sb, st, sh, _ = q.stride()
+    if q.dtype == torch.bfloat16 and (any(x.data_ptr() % 16 for x in (q, k, v))
+                                      or any(s_ % 8 for s_ in (sb, st, sh))):
+        raise ValueError(f"attention: bf16 views must be 16-byte aligned with strides "
+                         f"in multiples of 8, got strides {q.stride()}")
+    out = torch.empty((b, t, h, ch), dtype=q.dtype, device=q.device)
+    scale = _kernel_scale(ch, q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                         _DTYPES[q.dtype], b, t, h, ch, sb, st, sh, scale, stream)
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, t, h, ch, sb, st, sh, scale, stream)
     _build.check(rc, "nshmc_attention_fwd")
+    return out
+
+
+def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Forward attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v)
+    if q.device.type != "cuda":
+        raise ValueError(f"attention: unsupported device {q.device}")
+    out = launch(_launcher(), q, k, v)
     attention_forward.launches += 1
     return out
 

@@ -26,12 +26,18 @@ Hopper translation (Triton, launched only for CUDA tensors):
 
 `channel_stats` and `normalize_silu` are the wrappers: CUDA tensor ->
 Triton kernel (counted in `.launches`), CPU tensor -> the plain version,
-anything else raises. `groupnorm_silu` is the `torch.autograd.Function`;
-its backward recomputes through the plain version under autograd, as
-`_gn_bwd` recomputes through `groupnorm_silu_xla`.
+anything else raises. `groupnorm_silu` is the `torch.autograd.Function`.
+Its forward saves x and the (B, C) fp32 statistics K2a produced; its
+backward is the closed-form gradient of the function (the one `_gn_bwd`,
+nshmc_tpu/ops/groupnorm.py:150, gets by differentiating
+`groupnorm_silu_xla`): `groupnorm_silu_backward`, the wrapper of the CUDA
+kernel K2c (`csrc/groupnorm_bwd.cu`, see its header for what bounds it and
+how its three launches answer), with `groupnorm_silu_backward_plain` for
+CPU tensors. No statistics are recomputed and no autograd graph is built.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import os
 
@@ -233,30 +239,141 @@ def groupnorm_silu_plain(x, scale, bias, num_groups: int = NUM_GROUPS,
     return normalize_silu_plain(x3, mean_c, inv_c, scale, bias).reshape(x.shape)
 
 
-def _groupnorm_silu_forward(x, scale, bias, num_groups, eps):
-    x3 = _as_rows(x).contiguous()
-    mean_c, inv_c = group_combine(channel_stats(x3), x3.shape[1], num_groups, eps)
-    return normalize_silu(x3, mean_c, inv_c, scale, bias).reshape(x.shape)
+# --------------------------------------------------------------------------
+# backward: (dx, dscale, dbias) from x, the cotangent and the forward's
+# statistics (K2c)
+
+_BWD_THREADS = 256     # csrc/groupnorm_bwd.cu: one block covers 256 / (C / VEC) rows
+_BWD_SLAB_ROWS = 1024  # most rows of one batch element per partial-sums block
+_BWD_FINISH_SMEM = 48 * 1024
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_launcher():
+    """The C launcher of csrc/groupnorm_bwd.cu, built and loaded at first use."""
+    fn = _build.load("groupnorm_bwd.cu").nshmc_gn_bwd
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i32
+    fn.argtypes = [ptr] * 6 + [i32] + [ptr] * 5 + [i32] * 6 + [ptr]
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def bwd_slab_rows(b: int, r: int, c: int, elem_size: int, sms: int) -> int:
+    """Rows per partial-sums block: 1,024, halved while the (slab, batch)
+    grid would give the SMs fewer than two blocks each, down to four row
+    steps of a block."""
+    rows_per_step = _BWD_THREADS // (c // (16 // elem_size))
+    rows = _BWD_SLAB_ROWS
+    while rows > 4 * rows_per_step and b * -(-r // rows) < 2 * sms:
+        rows //= 2
+    return rows
+
+
+def groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias,
+                                  num_groups: int = NUM_GROUPS):
+    """The closed-form gradient of SiLU((x - mean) * inv * scale + bias)
+    with GroupNorm statistics, all in fp32. x, g: (B, R, C); mean_c, inv_c:
+    (B, C) fp32; scale, bias: (C,) or (B, C). Returns dx in x's dtype and
+    dscale, dbias in fp32 of the affine's shape."""
+    b, r, c = x.shape
+    sc = scale.float().reshape(-1, 1, c)
+    bi = bias.float().reshape(-1, 1, c)
+    xhat = (x.float() - mean_c[:, None]) * inv_c[:, None]
+    a = xhat * sc + bi
+    s = torch.sigmoid(a)
+    da = g.float() * s * (1 + a * (1 - s))
+    dbias = da.sum(dim=1)             # (B, C)
+    dscale = (da * xhat).sum(dim=1)
+    cg = c // num_groups
+    n = r * cg
+    gamma = sc[:, 0].expand(b, c)
+    k1 = (gamma * dbias).reshape(b, num_groups, cg).sum(-1) / n
+    k2 = (gamma * dscale).reshape(b, num_groups, cg).sum(-1) / n
+    k1 = k1.repeat_interleave(cg, dim=1)[:, None]
+    k2 = k2.repeat_interleave(cg, dim=1)[:, None]
+    dx = (inv_c[:, None] * (sc * da - (k1 + xhat * k2))).to(x.dtype)
+    if scale.dim() == 1:
+        dscale, dbias = dscale.sum(0), dbias.sum(0)
+    return dx, dscale, dbias
+
+
+def groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias,
+                            num_groups: int = NUM_GROUPS):
+    """K2c: CUDA tensors launch csrc/groupnorm_bwd.cu (three kernels,
+    counted once in `.launches`), CPU tensors take the plain version,
+    anything else raises."""
+    if x.device.type == "cpu":
+        return groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias, num_groups)
+    if x.device.type != "cuda":
+        raise ValueError(f"groupnorm_silu_backward: unsupported device {x.device}")
+    _check_cuda(x, "groupnorm_silu_backward")
+    b, r, c = x.shape
+    if g.shape != x.shape or g.dtype != x.dtype or g.device != x.device \
+            or not g.is_contiguous():
+        raise ValueError(f"groupnorm_silu_backward: cotangent {tuple(g.shape)} {g.dtype} "
+                         f"on {g.device} for {tuple(x.shape)} {x.dtype} on {x.device}")
+    vec = 16 // x.element_size()
+    if c % 8 or c % num_groups or c // vec > _BWD_THREADS:
+        raise ValueError(f"groupnorm_silu_backward: C = {c} must be a multiple of 8 and of "
+                         f"{num_groups} groups, at most {_BWD_THREADS * vec} for {x.dtype}")
+    if 8 * b * (c // num_groups) > _BWD_FINISH_SMEM:
+        raise ValueError(f"groupnorm_silu_backward: B * C / groups = {b * c // num_groups} "
+                         f"exceeds the finish kernel's shared memory")
+    if scale.shape != bias.shape or scale.shape not in ((c,), (b, c)):
+        raise ValueError(f"groupnorm_silu_backward: affine {tuple(scale.shape)} "
+                         f"for {tuple(x.shape)}")
+    for t in (mean_c, inv_c, scale, bias):
+        if t.dtype != torch.float32 or t.device != x.device:
+            raise ValueError(f"groupnorm_silu_backward: statistics and affine must be fp32 "
+                             f"on {x.device}, got {t.dtype} on {t.device}")
+    if mean_c.shape != (b, c) or inv_c.shape != (b, c):
+        raise ValueError(f"groupnorm_silu_backward: statistics {tuple(mean_c.shape)} "
+                         f"{tuple(inv_c.shape)} for {tuple(x.shape)}")
+    if x.data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError("groupnorm_silu_backward: x and g must be 16-byte aligned")
+    mean_c, inv_c, scale, bias = (t.contiguous() for t in (mean_c, inv_c, scale, bias))
+    rows = bwd_slab_rows(b, r, c, x.element_size(), _sm_count(x.device.index or 0))
+    part = torch.empty((b, -(-r // rows), 2, c), dtype=torch.float32, device=x.device)
+    coef = torch.empty((b, 2, num_groups), dtype=torch.float32, device=x.device)
+    dx = torch.empty_like(x)
+    dscale, dbias = torch.empty_like(scale), torch.empty_like(bias)
+    with torch.cuda.device(x.device):
+        rc = _bwd_launcher()(
+            x.data_ptr(), g.data_ptr(), mean_c.data_ptr(), inv_c.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), c if scale.dim() == 2 else 0,
+            part.data_ptr(), coef.data_ptr(), dx.data_ptr(), dscale.data_ptr(),
+            dbias.data_ptr(), 1 if x.dtype == torch.bfloat16 else 0, b, r, c, num_groups,
+            rows, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "nshmc_gn_bwd")
+    groupnorm_silu_backward.launches += 1
+    return dx, dscale, dbias
+
+
+groupnorm_silu_backward.launches = 0
 
 
 class _GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps):
-        ctx.save_for_backward(x, scale, bias)
-        ctx.num_groups, ctx.eps = num_groups, eps
-        return _groupnorm_silu_forward(x, scale, bias, num_groups, eps)
+        x3 = _as_rows(x).contiguous()
+        mean_c, inv_c = group_combine(channel_stats(x3), x3.shape[1], num_groups, eps)
+        ctx.save_for_backward(x3, scale, bias, mean_c, inv_c)
+        ctx.num_groups = num_groups
+        return normalize_silu(x3, mean_c, inv_c, scale, bias).reshape(x.shape)
 
     @staticmethod
     def backward(ctx, g):
-        x, scale, bias = ctx.saved_tensors
-        inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip((x, scale, bias), ctx.needs_input_grad[:3])]
-        with torch.enable_grad():
-            y = groupnorm_silu_plain(*inputs, ctx.num_groups, ctx.eps)
-        wanted = [t for t in inputs if t.requires_grad]
-        grads = iter(torch.autograd.grad(y, wanted, g) if wanted else ())
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None, None)
+        x3, scale, bias, mean_c, inv_c = ctx.saved_tensors
+        dx, dscale, dbias = groupnorm_silu_backward(
+            x3, g.reshape(x3.shape).contiguous(), mean_c, inv_c, scale, bias, ctx.num_groups)
+        need = ctx.needs_input_grad
+        return (dx.reshape(g.shape) if need[0] else None, dscale if need[1] else None,
+                dbias if need[2] else None, None, None)
 
 
 def groupnorm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -42,6 +42,33 @@ def time_s(fn, dev: torch.device, iters: int, warmup: int = 2):
     return start.elapsed_time(end) / 1e3 / iters
 
 
+def time_s_graph(fn, iters: int = 20, reps: int = 5) -> float:
+    """Mean device seconds per call of fn on the card: `iters` calls captured
+    in one CUDA graph, replayed `reps` times between CUDA events, so the
+    host's launch cost is left out (after warm-up on a side stream, as
+    capture needs). For calls whose kernels take less time than the host
+    takes to launch them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 1e3 / (iters * reps)
+
+
 def rate(traffic_bytes: int, seconds):
     """(GB/s, percent of the 3,350 GB/s data-sheet rate), None without a time."""
     if seconds is None:

@@ -1,0 +1,186 @@
+"""Hold the main path's CUDA kernels K1 (attention) and K2c (GroupNorm+SiLU
+backward) against their plain versions on the card, without timing them.
+
+    python -m nshmc_tpu_torch.scripts.kernel_check
+
+It builds csrc/attention.cu and csrc/groupnorm_bwd.cu, prints each
+kernel's registers, spills and shared memory (nvcc -Xptxas -v), then
+checks, on seeded random inputs:
+  - K1 at the flagship's attention shapes (8, 256, 8, 64) and (8, 64, 8, 64),
+    the latent U-Net's (8, 1024, 8, 32), and edge shapes (2, T, 2, ch) for
+    T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the tensor-core
+    kernel) and f32 (the scalar kernel);
+  - K2c at the hot GroupNorm shape (8, 65536, 128), smaller flagship shapes
+    and ragged ones, in bf16 and f32, with a (C,) and a (B, C) affine.
+Each case prints one line; the run exits 1 if any case disagrees. No time
+is measured: this is the build-and-check step before a kernel is timed.
+`chip_smoke.py` phase 3 uses the same checks at the main path's shapes.
+Needs a CUDA card and nvcc.
+
+Tolerances, with reasons:
+  - K1 f32: 1e-4 absolute (fp32 sums in another order).
+  - K1 bf16: every element within 2^-7 |y| + 2^-7 S + 2^-12, with
+    S = sum_j w_j |v_j| over the plain version's bf16 weights, and at most
+    5% of the elements differing at all. The tensor cores sum the fp32
+    logits in another order than the plain version's matmul, so a weight
+    whose fp32 value lies at a bf16 rounding midpoint can round to the other
+    neighbour; that moves y by one bf16 ulp of w_j times |v_j|, at most
+    2^-7 w_j |v_j|, and S bounds it for any set of such weights. 2^-7 |y| is
+    the output's own rounding, 2^-12 covers outputs near 0 from
+    cancellation. One bf16 ulp + 2^-12 alone does not hold for a change of
+    summation order: the plain version with its logits summed in 16-channel
+    chunks breaks it (tests/test_torch_attention_tc.py). Weights left
+    unrounded stay within the per-element bound but change ~41% of the
+    outputs, which the 5% limit refuses.
+  - K2c dx bf16: 2^-7 |dx| + 2^-12 max|dx|. Both compute dx in fp32 and
+    round once; their fp32 values differ in the order of the group sums and
+    in FMA contraction, which can round to the neighbouring bf16 value;
+    elements near 0 come from cancellation in gamma * da - (k1 + xh * k2).
+  - K2c dx f32: 1e-4 absolute (dx is O(1) on these inputs).
+  - K2c dscale, dbias: 1e-5 x max|ref|, fp32 sums of R values in another
+    order (the stats kernels' bar).
+"""
+from __future__ import annotations
+
+import sys
+import threading
+
+import torch
+
+from ..ops import _build
+from ..ops import attention as attn
+from ..ops import groupnorm as gn
+from ._bench import card, resolve_device
+
+SOURCES = ("attention.cu", "groupnorm_bwd.cu")
+ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64), (8, 1024, 8, 32)] + [
+    (2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64)]
+GN_SHAPES = [(8, 65536, 128), (8, 16384, 256), (8, 1024, 512), (8, 64, 512), (3, 1000, 96),
+             (1, 17, 32)]
+AFFINE_FORMS = ("per_channel", "per_batch_channel")
+
+
+def build_reports() -> dict:
+    """nvcc for each source in its own thread; {source: ptxas lines}.
+    Raises if any build fails."""
+    reports, errors = {}, []
+
+    def nvcc(src):
+        try:
+            reports[src] = _build.ptxas_summary(_build.build(src)[1])
+        except Exception as e:  # reported after the join
+            errors.append(f"{src}: {e}")
+
+    threads = [threading.Thread(target=nvcc, args=(s,)) for s in SOURCES]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(errors))
+    return reports
+
+
+def qkv_inputs(shape, dtype, gen, device):
+    """q, k, v as views of one seeded (B, T, H, 3, ch) tensor, as the U-Net
+    passes them."""
+    b, t, h, ch = shape
+    qkv = torch.randn((b, t, h, 3, ch), generator=gen, device=device).to(dtype)
+    return tuple(qkv[..., i, :] for i in range(3))
+
+
+BF16_ATTN_TOL = "2^-7 |y| + 2^-7 sum_j w_j |v_j| + 2^-12, <= 5% of elements differ"
+
+
+def bf16_attention_agreement(y, y_plain, w, v):
+    """The bf16 K1 criterion (see the module note) for an output y against
+    the plain output, given the plain bf16 weights w (B, H, T, T) and v:
+    {ok, max_abs_err, beyond_one_ulp (elements past 2^-7 |y| + 2^-12),
+    frac_differ}."""
+    y, y_plain = y.float(), y_plain.float()
+    diff = (y - y_plain).abs()
+    spread = torch.einsum("bhts,bshc->bthc", w.float(), v.float().abs())
+    frac = float((diff > 0).float().mean())
+    ok = bool((diff <= 2 ** -7 * y_plain.abs() + 2 ** -7 * spread + 2 ** -12).all())
+    return {"ok": ok and frac <= 0.05, "max_abs_err": float(diff.max()),
+            "beyond_one_ulp": int((diff > 2 ** -7 * y_plain.abs() + 2 ** -12).sum()),
+            "frac_differ": frac}
+
+
+def attention_check(q, k, v):
+    """K1 against attention_plain: {ok, max_abs_err, tolerance, and for bf16
+    beyond_one_ulp and frac_differ}."""
+    y = attn.attention_forward(q, k, v)
+    y_plain = attn.attention_plain(q, k, v)
+    if q.dtype == torch.float32:
+        err = float((y - y_plain).abs().max())
+        return {"ok": err <= 1e-4, "max_abs_err": err, "tolerance": "1e-4"}
+    res = bf16_attention_agreement(y, y_plain, attn.attention_weights_plain(q, k, v.dtype), v)
+    return {**res, "tolerance": BF16_ATTN_TOL}
+
+
+def attention_summary(res) -> str:
+    """One line of an attention_check result."""
+    extra = (f", {res['beyond_one_ulp']} elements past one bf16 ulp + 2^-12, "
+             f"{100 * res['frac_differ']:.3f}% differ" if "frac_differ" in res else "")
+    return (f"max|kernel-plain| {res['max_abs_err']:.3e}{extra} (tol {res['tolerance']}): "
+            f"{'ok' if res['ok'] else 'DISAGREES'}")
+
+
+def gn_inputs(shape, dtype, form, gen, device):
+    """x, the cotangent g, the forward's statistics and an affine, seeded."""
+    b, r, c = shape
+    x = (1.5 * torch.randn(shape, generator=gen, device=device) + 0.3).to(dtype)
+    g = torch.randn(shape, generator=gen, device=device).to(dtype)
+    mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
+    aff = (c,) if form == "per_channel" else (b, c)
+    scale = 1 + 0.3 * torch.randn(aff, generator=gen, device=device)
+    bias = 0.3 * torch.randn(aff, generator=gen, device=device)
+    return x, g, mean_c, inv_c, scale, bias
+
+
+def gn_backward_check(x, g, mean_c, inv_c, scale, bias):
+    """K2c against groupnorm_silu_backward_plain: {dx_err, affine_rel_err,
+    ok, tolerance}."""
+    got = gn.groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias)
+    want = gn.groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias)
+    ref = want[0].float().abs()
+    diff = (got[0].float() - want[0].float()).abs()
+    if x.dtype == torch.float32:
+        tol, ok = "dx 1e-4", bool((diff <= 1e-4).all())
+    else:
+        tol = "dx 2^-7 |dx| + 2^-12 max|dx|"
+        ok = bool((diff <= 2 ** -7 * ref + 2 ** -12 * ref.max()).all())
+    aff = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:]))
+    return {"dx_err": float(diff.max()), "affine_rel_err": aff,
+            "ok": ok and aff <= 1e-5, "tolerance": tol + "; dscale, dbias 1e-5 max|ref|"}
+
+
+def main() -> int:
+    dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for src, lines in build_reports().items():
+        for line in lines:
+            print(f"[{src}] {line}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bad = []
+    for shape in ATTN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            res = attention_check(*qkv_inputs(shape, dt, gen, dev))
+            print(f"K1 {shape} {dt}: {attention_summary(res)}")
+            bad += [] if res["ok"] else [("K1", shape, dt)]
+    for shape in GN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            for form in AFFINE_FORMS:
+                res = gn_backward_check(*gn_inputs(shape, dt, form, gen, dev))
+                print(f"K2c {shape} {dt} {form}: max|dx| diff {res['dx_err']:.3e}, "
+                      f"affine rel {res['affine_rel_err']:.2e} ({res['tolerance']}): "
+                      f"{'ok' if res['ok'] else 'DISAGREES'}")
+                bad += [] if res["ok"] else [("K2c", shape, dt, form)]
+    print(card(dev))
+    print(f"{'all cases agree' if not bad else f'{len(bad)} cases disagree: {bad}'}")
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
