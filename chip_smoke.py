@@ -21,7 +21,13 @@ It builds the port's kernels from the sources in this checkout and then:
      (K1's from CUDA graphs, device time without the host's launch cost):
      K1 (bf16 on tensor cores, f32 scalar) also at the latent U-Net's shape
      and at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
-     and both affine forms (the checks of nshmc_tpu_torch.scripts.kernel_check);
+     and both affine forms, each of its two designs (one launch, two-pass),
+     also at kernel_check.GN_SHAPES, each case called twice for
+     bit-identical results (the checks of nshmc_tpu_torch.scripts.
+     kernel_check); nshmc_tpu_torch.scripts.groupnorm_bwd_variants times the
+     two designs side by side at every flagship shape (CUDA graphs), each
+     time beside the three-pass bound and the five-pass floor, and the
+     wrapper's pick beside the faster design;
   4. compares a flagship-width U-Net forward and the pixel loss's input
      gradient through the 3-step decoder (f32, one chain) with the CPU;
   5. runs the port's CLI end to end on configs/ffhq.yaml;
@@ -56,10 +62,13 @@ PROBE_ITERS = 30     # stream probe: calls per timed case
 PROBE_EDGE_SHAPES = ((1, 2048, 32), (3, 6144, 96), (2, 4096, 224), (1, 2048, 2048))
 STATS_EDGE_SHAPES = ((2, 3000, 8), (1, 100, 72), (3, 1037, 136), (1, 17, 2048))
 MEMBENCH_ITERS = 10  # GroupNorm microbench: calls per timed case
-MAIN_PATH_KERNELS = ("attention", "gn_stats", "gn_apply", "gn_backward")  # P1-P4: probe path only
+MAIN_PATH_KERNELS = ("attention", "gn_stats", "gn_apply")  # P1-P4: probe path only
+# K2c's designs (ops/groupnorm.py::bwd_design): on the main path where the
+# wrapper picks them at a flagship GN+SiLU shape
+BWD_KERNELS = {"one_launch": "gn_backward", "twopass": "gn_backward_twopass"}
 # K1 edge shapes (B, T, H, ch), checked in bf16 and f32: ragged query and key tiles
 ATTN_EDGE_SHAPES = tuple((2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64))
-GN_BWD_OPS = 40  # fp32 operations per element of the GN+SiLU backward (two passes of ~20)
+GN_BWD_OPS = 40  # fp32 operations per element of the GN+SiLU backward (~20 for the sums, ~20 for dx)
 
 
 def fail(msg):
@@ -403,10 +412,19 @@ def main():
         return
 
     # the main path's kernels, and the probe kernels, which it must not run
+    gn_shapes = {}  # (B, rows, C) -> GN+SiLU sites per U-Net forward, both forms
+    for (b, r, cc, _), n_sites in gn_sites.items():
+        gn_shapes[(b, r, cc)] = gn_shapes.get((b, r, cc), 0) + n_sites
+    check(gn_shapes == kc.FLAGSHIP_GN_SITES,
+          f"GN+SiLU sites {gn_shapes} are not kernel_check.FLAGSHIP_GN_SITES")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    on_path = set(MAIN_PATH_KERNELS) | {BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]
+                                        for shape in kc.FLAGSHIP_GN_SITES}
     counters = {"attention": attn.attention_forward, "gn_stats": gn.channel_stats,
-                "gn_apply": gn.normalize_silu, "gn_backward": gn.groupnorm_silu_backward,
+                "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
+                "gn_backward_twopass": gn.launch_twopass,
                 **{f.__name__: f for f in sp.KERNELS}}
-    for f in counters.values():
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
     round_s = []
@@ -427,6 +445,7 @@ def main():
     out = engine.run_hmc(loss_fn, hcfg, state, gen, draws=draws(), callback=timed)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
+    bwd_calls = gn.groupnorm_silu_backward.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = hcfg.n_leapfrog + 1
     steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
@@ -438,14 +457,18 @@ def main():
     print(f"main path kernel launches: {launches} "
           f"(per energy+grad eval: "
           f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} })")
-    print(f"GN+SiLU backward launches per U-Net forward: "
-          f"{launches['gn_backward'] / (3 * evals * len(steps)):.2f} "
-          f"(expected one per GN+SiLU site: {n_gn})")
+    print(f"GN+SiLU backward calls per U-Net forward: {bwd_calls / (3 * evals * len(steps)):.2f} "
+          f"(expected one per GN+SiLU site: {n_gn}), one kernel design each: "
+          f"{launches['gn_backward']} one-launch + {launches['gn_backward_twopass']} two-pass")
+    check(bwd_calls == 3 * evals * len(steps) * n_gn
+          and bwd_calls == launches["gn_backward"] + launches["gn_backward_twopass"],
+          f"{bwd_calls} GN+SiLU backward calls for {n_gn} sites: {launches}")
     for k, v in launches.items():
-        if k in MAIN_PATH_KERNELS:
+        if k in on_path:
             check(v > 0, f"kernel {k} was never launched on the main path")
         else:
-            check(v == 0, f"probe kernel {k} was launched {v} times on the main path")
+            check(v == 0, f"kernel {k} was launched {v} times on the main path, where no "
+                          f"shape takes it")
     check(bool(torch.isfinite(out.x).all()), "chain state is not finite")
     check(int(out.attempts.min()) == ATTEMPTS, f"attempts {out.attempts.tolist()}")
     check(float(out.last_decoded.abs().max()) <= 1.0, "decoded images leave [-1, 1]")
@@ -520,9 +543,6 @@ def main():
           f"(16, 32, 64); worst bf16: {kc.attention_summary(edge[torch.bfloat16])}; worst "
           f"f32: {kc.attention_summary(edge[torch.float32])}")
 
-    gn_shapes = {}  # (B, rows, C) -> GN+SiLU sites per U-Net forward, both forms
-    for (b, r, cc, _), n_sites in gn_sites.items():
-        gn_shapes[(b, r, cc)] = gn_shapes.get((b, r, cc), 0) + n_sites
     worst = {}  # (kernel, dtype) -> max abs err over the shapes and forms
     for (b, r, cc) in sorted(gn_shapes):
         for dt in (torch.bfloat16, torch.float32):
@@ -589,25 +609,37 @@ def main():
             print(f"K2 whole GN+SiLU at {(b, r, cc)} bf16: {whole:.4f} ms, "
                   f"F.group_norm+F.silu {lib:.4f} ms")
 
-    bwd_worst, bwd_hot = {}, {}  # dtype -> (max dx err, max affine rel err); shape -> result
-    for (b, r, cc) in sorted(gn_shapes):  # K2c against its plain version
+    bwd_worst, bwd_hot = {}, {}  # dtype -> (max dx err, max affine rel err); design -> result
+    for shape in dict.fromkeys([*sorted(gn_shapes), *kc.GN_SHAPES]):  # K2c's designs vs plain
         for dt in (torch.bfloat16, torch.float32):
             for form in kc.AFFINE_FORMS:
-                res = kc.gn_backward_check(*kc.gn_inputs((b, r, cc), dt, form, g, dev))
-                check(res["ok"], f"GN+SiLU backward {(b, r, cc)} {dt} {form}: {res}")
-                dx_w, af_w = bwd_worst.get(dt, (0.0, 0.0))
-                bwd_worst[dt] = (max(dx_w, res["dx_err"]), max(af_w, res["affine_rel_err"]))
-                if (dt, form) == (torch.bfloat16, "per_batch_channel"):
-                    bwd_hot[(b, r, cc)] = res
-    print(f"K2c GN+SiLU backward: {len(gn_shapes)} main-path shapes x (bf16, f32) x "
-          f"(per-channel, per-(batch, channel) affine) agree: worst dx err bf16 "
+                inputs = kc.gn_inputs(shape, dt, form, g, dev)
+                for design in BWD_KERNELS:
+                    res = kc.gn_backward_check(*inputs, design=design)
+                    check(res["ok"], f"GN+SiLU backward {design} {shape} {dt} {form}: {res}")
+                    if shape not in gn_shapes:  # edge shapes of the wrapper's range
+                        continue
+                    dx_w, af_w = bwd_worst.get(dt, (0.0, 0.0))
+                    bwd_worst[dt] = (max(dx_w, res["dx_err"]), max(af_w, res["affine_rel_err"]))
+                    if (shape, dt, form) == ((CHAINS, d * d, mcfg.model_channels),
+                                             torch.bfloat16, "per_batch_channel"):
+                        bwd_hot[design] = res
+    print(f"K2c GN+SiLU backward, both designs: {len(gn_shapes)} main-path shapes and "
+          f"{len(kc.GN_SHAPES)} edge shapes x (bf16, f32) x (per-channel, per-(batch, channel) "
+          f"affine) agree, two calls bit-identical in every case: worst main-path dx err bf16 "
           f"{bwd_worst[torch.bfloat16][0]:.2e} (tol 2^-7 |dx| + 2^-12 max|dx|), f32 "
           f"{bwd_worst[torch.float32][0]:.2e} (tol 1e-4); dscale/dbias worst rel err "
           f"{max(v[1] for v in bwd_worst.values()):.2e} (tol 1e-5)")
+    # the two designs side by side at every flagship shape, in this call
+    from nshmc_tpu_torch.scripts import groupnorm_bwd_variants
+    variants = groupnorm_bwd_variants.main([])
+    check(all(v["agrees"] for v in variants), "a K2c design disagrees with the plain version")
+    print(f"K2c designs: {json.dumps(groupnorm_bwd_variants.summary(variants))}")
+    variants = {(tuple(v["shape"]), v["dtype"]): v for v in variants}
     for (b, r, cc), n_sites in sorted(gn_shapes.items()):  # K2c times at each shape, bf16
+        v = variants[((b, r, cc), "bfloat16")]
         x, gk, mean_c, inv_c, sc, bi = kc.gn_inputs((b, r, cc), torch.bfloat16,
                                                     "per_batch_channel", g, dev)
-        bw_ms = time_ms(lambda: gn.groupnorm_silu_backward(x, gk, mean_c, inv_c, sc, bi))
         bw_plain = time_ms(lambda: gn.groupnorm_silu_backward_plain(x, gk, mean_c, inv_c, sc, bi))
         # yardstick: the backward of F.group_norm + F.silu alone, a per-channel
         # affine and two library backwards: not the same function
@@ -620,15 +652,22 @@ def main():
         n = b * r * cc
         small = (2 * b * cc + 2 * b * cc + b * cc * 2) * 4  # stats, affine in; its grads out
         bw_b, bw_by = bound_ms(3 * n * 2 + small, GN_BWD_OPS * n, "float32")
-        floor5 = bound_ms(5 * n * 2, 0, "float32")[0]  # the two-read design's own floor
-        print(f"K2c {(b, r, cc)} bf16, {n_sites} sites/forward: backward {bw_ms:.4f} ms "
-              f"(plain {bw_plain:.4f}, bound {bw_b:.4f} ({bw_by}), five-pass floor "
-              f"{floor5:.4f}); F.group_norm+F.silu backward {bw_lib:.4f} ms")
+        floor5 = bound_ms(5 * n * 2, 0, "float32")[0]  # a design that reads x and g twice
+        best = min(v["one_launch_ms"], v["twopass_ms"])
+        print(f"K2c {(b, r, cc)} bf16, {n_sites} sites/forward: one launch "
+              f"{v['one_launch_ms']:.4f} ms, two-pass {v['twopass_ms']:.4f} ({v['timing']}); "
+              f"the wrapper picks {v['picked']}, the faster is {v['faster']}; plain "
+              f"{bw_plain:.4f}, three-pass bound {bw_b:.4f} ({bw_by}), five-pass floor "
+              f"{floor5:.4f}: the faster design {'under' if best < floor5 else 'NOT under'} "
+              f"it; F.group_norm+F.silu backward {bw_lib:.4f} ms")
         if (b, r, cc) == (CHAINS, d * d, mcfg.model_channels):
-            res = bwd_hot[(b, r, cc)]
-            rec("gn_backward", ms=bw_ms, plain_ms=bw_plain, library_ms=bw_lib, bound_ms=bw_b,
-                bound_by=bw_by, max_abs_err=res["dx_err"], tolerance=res["tolerance"],
-                shape=[b, r, cc], dtype="bfloat16")
+            for design, name in BWD_KERNELS.items():
+                res = bwd_hot[design]
+                rec(name, ms=v[f"{design}_ms"], plain_ms=bw_plain, library_ms=bw_lib,
+                    bound_ms=bw_b, bound_by=bw_by, max_abs_err=res["dx_err"],
+                    tolerance=res["tolerance"], shape=[b, r, cc], dtype="bfloat16",
+                    five_pass_floor_ms=floor5, timing=v["timing"],
+                    picked_at_this_shape=v["picked"] == design)
         del x4, y4
 
     # ---- 4. flagship width, f32, one chain: card vs CPU ------------------------
@@ -698,6 +737,8 @@ def main():
                             "nshmc_tpu/ops/groupnorm.py:75"),
                "gn_backward": ("cuda", "nshmc_tpu_torch/csrc/groupnorm_bwd.cu",
                                "nshmc_tpu/ops/groupnorm.py:150 _gn_bwd"),
+               "gn_backward_twopass": ("cuda", "nshmc_tpu_torch/csrc/groupnorm_bwd.cu",
+                                       "nshmc_tpu/ops/groupnorm.py:150 _gn_bwd"),
                "probe_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:43"),
                "probe_apply": ("cuda", probe_src, "scripts/pallas_stream_probe.py:73"),
                "probe_touch": ("cuda", probe_src, "scripts/pallas_stream_probe.py:183"),
@@ -705,7 +746,7 @@ def main():
     kernels = []
     for name, (route, src, replaces) in sources.items():
         r_ = records[name]
-        on_main = name in MAIN_PATH_KERNELS
+        on_main = name in MAIN_PATH_KERNELS or name in BWD_KERNELS.values()
         # `launches`: the count of the kernel's own path (the flagship HMC run,
         # or the probe's timed cases for P1-P4), each set to 0 just before it;
         # `main_path_launches`: every kernel's count over the flagship HMC run
@@ -717,7 +758,9 @@ def main():
                         "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"], "library_ms": r_["library_ms"],
                         "shape": r_["shape"], "dtype": r_["dtype"],
-                        "tolerance": r_["tolerance"]})
+                        "tolerance": r_["tolerance"],
+                        **{k: r_[k] for k in ("five_pass_floor_ms", "timing",
+                                              "picked_at_this_shape") if k in r_}})
     print(json.dumps({"kernels": kernels, "main_path": {
         "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog}}))

@@ -10,8 +10,11 @@ checks, on seeded random inputs:
     the latent U-Net's (8, 1024, 8, 32), and edge shapes (2, T, 2, ch) for
     T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the tensor-core
     kernel) and f32 (the scalar kernel);
-  - K2c at the hot GroupNorm shape (8, 65536, 128), smaller flagship shapes
-    and ragged ones, in bf16 and f32, with a (C,) and a (B, C) affine.
+  - K2c, both of its designs (the one launch and the two-pass one, each
+    called directly, whichever the wrapper would pick), at the flagship's 18
+    GN+SiLU shapes (FLAGSHIP_GN_SITES) and at GN_SHAPES (smaller and ragged
+    ones), in bf16 and f32, with a (C,) and a (B, C) affine; each case also
+    calls the design twice and requires bit-identical dx, dscale and dbias.
 Each case prints one line; the run exits 1 if any case disagrees. No time
 is measured: this is the build-and-check step before a kernel is timed.
 `chip_smoke.py` phase 3 uses the same checks at the main path's shapes.
@@ -57,6 +60,15 @@ ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64), (8, 1024, 8, 32)] + [
     (2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64)]
 GN_SHAPES = [(8, 65536, 128), (8, 16384, 256), (8, 1024, 512), (8, 64, 512), (3, 1000, 96),
              (1, 17, 32)]
+# the flagship U-Net's GN+SiLU sites, (B, rows, C) at 8 chains -> sites a
+# forward (configs/ffhq.yaml; 61 sites a forward over these 18 shapes)
+FLAGSHIP_GN_SITES = {(8, 65536, 256): 2, (8, 65536, 128): 7, (8, 16384, 384): 1,
+                     (8, 16384, 256): 2, (8, 16384, 128): 7, (8, 4096, 512): 1,
+                     (8, 4096, 384): 1, (8, 4096, 256): 6, (8, 4096, 128): 2,
+                     (8, 1024, 768): 1, (8, 1024, 512): 2, (8, 1024, 256): 7,
+                     (8, 256, 1024): 1, (8, 256, 768): 1, (8, 256, 512): 6, (8, 256, 256): 2,
+                     (8, 64, 1024): 2, (8, 64, 512): 10}
+GN_BWD_DESIGNS = {"one_launch": gn.launch_one, "twopass": gn.launch_twopass}
 AFFINE_FORMS = ("per_channel", "per_batch_channel")
 
 
@@ -139,14 +151,12 @@ def gn_inputs(shape, dtype, form, gen, device):
     return x, g, mean_c, inv_c, scale, bias
 
 
-def gn_backward_check(x, g, mean_c, inv_c, scale, bias):
-    """K2c against groupnorm_silu_backward_plain: {dx_err, affine_rel_err,
-    ok, tolerance}."""
-    got = gn.groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias)
-    want = gn.groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias)
+def gn_backward_agreement(got, want):
+    """(dx, dscale, dbias) against the plain version's under the K2c
+    tolerance (see the module note): {dx_err, affine_rel_err, ok, tolerance}."""
     ref = want[0].float().abs()
     diff = (got[0].float() - want[0].float()).abs()
-    if x.dtype == torch.float32:
+    if want[0].dtype == torch.float32:
         tol, ok = "dx 1e-4", bool((diff <= 1e-4).all())
     else:
         tol = "dx 2^-7 |dx| + 2^-12 max|dx|"
@@ -154,6 +164,21 @@ def gn_backward_check(x, g, mean_c, inv_c, scale, bias):
     aff = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:]))
     return {"dx_err": float(diff.max()), "affine_rel_err": aff,
             "ok": ok and aff <= 1e-5, "tolerance": tol + "; dscale, dbias 1e-5 max|ref|"}
+
+
+def gn_backward_check(x, g, mean_c, inv_c, scale, bias, design=None):
+    """K2c (the wrapper, or the design named, called directly) against
+    groupnorm_silu_backward_plain, and a second call against the first:
+    {dx_err, affine_rel_err, ok, tolerance, same_bits}. `ok` needs both the
+    tolerance and the same bits (both designs add in a fixed order and use
+    no float atomics)."""
+    fn = gn.groupnorm_silu_backward if design is None else GN_BWD_DESIGNS[design]
+    got = fn(x, g, mean_c, inv_c, scale, bias)
+    again = fn(x, g, mean_c, inv_c, scale, bias)
+    res = gn_backward_agreement(got, gn.groupnorm_silu_backward_plain(
+        x, g, mean_c, inv_c, scale, bias))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    return {**res, "same_bits": same, "ok": res["ok"] and same}
 
 
 def main() -> int:
@@ -169,14 +194,18 @@ def main() -> int:
             res = attention_check(*qkv_inputs(shape, dt, gen, dev))
             print(f"K1 {shape} {dt}: {attention_summary(res)}")
             bad += [] if res["ok"] else [("K1", shape, dt)]
-    for shape in GN_SHAPES:
+    for shape in dict.fromkeys([*FLAGSHIP_GN_SITES, *GN_SHAPES]):
         for dt in (torch.bfloat16, torch.float32):
             for form in AFFINE_FORMS:
-                res = gn_backward_check(*gn_inputs(shape, dt, form, gen, dev))
-                print(f"K2c {shape} {dt} {form}: max|dx| diff {res['dx_err']:.3e}, "
-                      f"affine rel {res['affine_rel_err']:.2e} ({res['tolerance']}): "
-                      f"{'ok' if res['ok'] else 'DISAGREES'}")
-                bad += [] if res["ok"] else [("K2c", shape, dt, form)]
+                inputs = gn_inputs(shape, dt, form, gen, dev)
+                for design in GN_BWD_DESIGNS:
+                    res = gn_backward_check(*inputs, design=design)
+                    print(f"K2c {design} {shape} {dt} {form}: max|dx| diff "
+                          f"{res['dx_err']:.3e}, affine rel {res['affine_rel_err']:.2e} "
+                          f"({res['tolerance']}), two calls "
+                          f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
+                          f"{'ok' if res['ok'] else 'DISAGREES'}")
+                    bad += [] if res["ok"] else [("K2c", design, shape, dt, form)]
     print(card(dev))
     print(f"{'all cases agree' if not bad else f'{len(bad)} cases disagree: {bad}'}")
     return 1 if bad else 0
