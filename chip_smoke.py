@@ -2,7 +2,7 @@
 """Chip smoke run of nshmc_tpu_torch on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --trace OUT_DIR  # profile one flagship evaluation instead
+    python3 chip_smoke.py --trace OUT_DIR  # profile one flagship and one latent evaluation
 
 It builds the port's kernels from the sources in this checkout and then:
   1. holds the port's output against its plain-PyTorch path on the CPU on a
@@ -19,8 +19,7 @@ It builds the port's kernels from the sources in this checkout and then:
      it against its plain version (stated tolerances) and times it, its
      plain version and the closest single PyTorch call with CUDA events
      (K1's from CUDA graphs, device time without the host's launch cost):
-     K1 (bf16 on tensor cores, f32 scalar) also at the latent U-Net's shape
-     and at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
+     K1 (bf16 on tensor cores, f32 scalar) also at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
      and both affine forms, each of its two designs (one launch, two-pass),
      also at kernel_check.GN_SHAPES, each case called twice for
      bit-identical results (the checks of nshmc_tpu_torch.scripts.
@@ -35,10 +34,25 @@ It builds the port's kernels from the sources in this checkout and then:
      at (8, 65536, 128) bf16: holds each probe kernel P1-P4 against its plain
      version, sets their launch counts to 0, times every probe case and reads
      the counts; then runs the GroupNorm microbench
-     (nshmc_tpu_torch.scripts.membench2) at (8, 256, 256, 128).
+     (nshmc_tpu_torch.scripts.membench2) at (8, 256, 256, 128);
+  7. the latent path: (a) the tiny latent config's latent loss, z0 and
+     z-gradient, f32, card vs CPU (the quantizer's differing-code share
+     reported and bounded); (b) the latent flagship (configs/ffhq_latent.yaml
+     at full width, bf16, random weights, 92% random inpainting at 256^2,
+     3-step DDIM, 8 chains, 3 MH attempts at L = 20) through the port's latent
+     engine, with every kernel count set to 0 just before and read just after:
+     K1 at all 16 attention blocks of each eps-net forward, K2a/K2b at every
+     GN+SiLU site, K2c at the VQ decoder's 23 and at none of the stop-gradded
+     eps-net's, P1-P4 never; evals/s, peak memory and useful TFLOP/s; (c) K1
+     at the latent U-Net's three shapes, bf16 and f32, timed beside SDPA and
+     the bound; (d) K2a/K2b/K2c at the VQ decoder's sites, eps 1e-6 (K2a/K2b
+     also at the U-Net's), timed in bf16; (e) the CLI, --algo hmc_latent, on
+     configs/ffhq_latent.yaml in f32.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}. With --trace, one flagship and one latent
+flagship evaluation are profiled (OUT_DIR/trace_main_path.json,
+OUT_DIR/trace_latent_path.json) and nothing else runs.
 """
 import json
 import math
@@ -210,11 +224,46 @@ def phase_small_reference(torch, np, mods):
     check(max(rel) < 2e-4, f"card disagrees with the CPU on the small input: {rel}")
 
 
-def trace_eval(torch, engine, loss_fn, x, out_dir):
-    """`chip_smoke.py --trace OUT_DIR`: profile one flagship energy+grad
-    evaluation (after one untimed) with torch.profiler; print the kernels by
-    device time and the busy share of the device, and write a Chrome trace
-    to OUT_DIR/trace_main_path.json."""
+def attention_case(torch, attn, kc, shape, dt, g, dev):
+    """K1 at (B, T, H, ch) in dt against its plain version, forward and
+    gradient, and timed: the kernel, its plain version and SDPA from CUDA
+    graphs of 20 calls (device ms, the host's launch cost left out: at these
+    sizes it exceeds the kernels'), the kernel's eager call (host included)
+    and the bound. Fails the run on a disagreement; returns the record."""
+    b, t, h, ch = shape
+    q, k, v = kc.qkv_inputs(shape, dt, g, dev)
+    res = kc.attention_check(q, k, v)
+    # gradient through the autograd.Function vs autograd of the plain version
+    qs = [x.detach().float().to(dt).requires_grad_(True) for x in (q, k, v)]
+    gk = torch.autograd.grad((attn.attention(*qs).float() ** 2).sum(), qs)
+    gp = torch.autograd.grad((attn.attention_plain(*qs).float() ** 2).sum(), qs)
+    gerr = max(float((a.float() - b_.float()).norm() / b_.float().norm())
+               for a, b_ in zip(gk, gp))
+    gtol = 1e-4 if dt == torch.float32 else 3e-2
+    dname = str(dt).split(".")[1]
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    ms = time_ms_graph(lambda: attn.attention_forward(q, k, v))
+    plain = time_ms_graph(lambda: attn.attention_plain(q, k, v))
+    lib = time_ms_graph(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, scale=1.0 / math.sqrt(ch)))
+    eager = time_ms(lambda: attn.attention_forward(q, k, v))
+    nbytes = 4 * b * t * h * ch * q.element_size()
+    bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch, dname)
+    print(f"K1 attention {shape} {dname}: {kc.attention_summary(res)}; grad rel "
+          f"err {gerr:.2e} (tol {gtol}); device ms per call: kernel {ms:.4f}, plain "
+          f"{plain:.4f}, sdpa {lib:.4f} (kernel/sdpa {ms / lib:.2f}), bound {bms:.4f} "
+          f"({by}); eager kernel call {eager:.4f} ms")
+    check(res["ok"] and gerr <= gtol, f"attention {shape} {dname} disagrees")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                max_abs_err=res["max_abs_err"], tolerance=res["tolerance"], shape=list(shape),
+                dtype=dname)
+
+
+def trace_eval(torch, engine, loss_fn, x, out_dir, name="main_path", what="flagship"):
+    """`chip_smoke.py --trace OUT_DIR`: profile one energy+grad evaluation
+    (after one untimed) with torch.profiler; print the kernels by device
+    time and the busy share of the device, and write a Chrome trace to
+    OUT_DIR/trace_{name}.json. Returns the device busy ms."""
     from torch.profiler import ProfilerActivity, profile
 
     engine.value_and_grad(loss_fn, x)
@@ -231,12 +280,13 @@ def trace_eval(torch, engine, loss_fn, x, out_dir):
         getattr(e, "self_cuda_time_total", 0)
     # the kernels' own rows: the operator rows repeat their kernels' time
     busy_us = sum(dev_time(e) for e in events if e.device_type == DeviceType.CUDA)
-    print(f"trace: one energy+grad eval, {CHAINS} chains: wall {wall * 1e3:.1f} ms, device "
-          f"busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
+    print(f"trace: one {what} energy+grad eval, {x.shape[0]} chains: wall {wall * 1e3:.1f} ms, "
+          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=70))
     print(events.table(sort_by="self_cpu_time_total", row_limit=25, max_name_column_width=70))
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "trace_main_path.json"))
+    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
+    return busy_us / 1e3
 
 
 def phase_probes(torch, shape):
@@ -305,6 +355,335 @@ def phase_probes(torch, shape):
           "GroupNorm microbench left a case untimed")
     print(f"phase 6 (stream probe + GroupNorm microbench) took {time.time() - t0:.1f} s")
     return records
+
+
+# ---- 7. the latent path -------------------------------------------------------------------
+
+LATENT_CFG = os.path.join(ROOT, "configs", "ffhq_latent.yaml")
+LATENT_TINY_CFG = os.path.join(ROOT, "configs", "tiny_latent_test.yaml")
+# useful TFLOP of one batch-8 latent energy+grad evaluation, stop-grad eps-net
+# (scripts/useful_flops_latent.json, a count that does not depend on the hardware)
+LATENT_USEFUL_TFLOP = 15.863
+CODE_FLIP_BOUND = 0.01  # share of quantizer codes that may differ, card vs CPU (near ties)
+
+
+def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantize=False):
+    """The latent path at a config: the LDM with seeded random weights (the
+    layers the reference zero-initialises small, as in random_state_dict),
+    92% random inpainting of a synthetic image, y0 = H(x) + 0.1 noise, the
+    3-step DDIM ladder with the stop-grad eps-net, and the latent loss."""
+    import types
+
+    import yaml
+    from nshmc_tpu_torch.cli_latent import latent_configs
+    from nshmc_tpu_torch.hmc import latent
+    from nshmc_tpu_torch.models.ldm import LatentDiffusion
+    from nshmc_tpu_torch.operators import build_operator
+    from nshmc_tpu_torch.sampling import ddim
+    from nshmc_tpu_torch.schedules import DDIMSequence
+
+    with open(cfg_path) as f:
+        cfg = yaml.safe_load(f)
+    ucfg, acfg = latent_configs(cfg)
+    m = cfg["model"]
+    ldm = LatentDiffusion.create(ucfg, acfg, m["linear_start"], m["linear_end"], m["timesteps"],
+                                 dtype=dtype, device=dev)
+    ldm.unet.load_state_dict(random_state_dict(torch, ldm.unet, seed))
+    ldm.first_stage.load_state_dict(random_state_dict(torch, ldm.first_stage, seed + 1))
+    d, c = cfg["data"]["image_size"], cfg["data"]["channels"]
+    op = build_operator("inpaint_random", c, d, np.random.default_rng(seed), device=dev)
+    x_orig = 2 * torch.from_numpy(synthetic_image(np, d, seed)).to(dev)[None] - 1
+    y0 = op.H_img(x_orig)  # its noise from the CPU generator: the same y0 on every device
+    y0 = y0 + 0.1 * torch.randn(y0.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    decode_z = ddim.make_decoder(ldm.model_fn(), ldm.schedule, DDIMSequence.create(m["timesteps"], 3))
+    decode_x = lambda z0: ldm.decode_first_stage(z0, force_not_quantize)
+    loss_fn = latent.make_latent_loss_fn(decode_z, decode_x, op, y0[0])
+    z_shape = (ucfg.image_size, ucfg.image_size, ucfg.in_channels)
+    return types.SimpleNamespace(ldm=ldm, loss_fn=loss_fn, decode_z=decode_z, gen=gen,
+                                 z_shape=z_shape)
+
+
+def phase_latent_small(torch, np, engine):
+    """(a) The tiny latent config in f32: the latent loss, the DDIM-decoded
+    z0 and the z-gradient on the card (kernels) against the CPU (plain
+    versions). The quantizer's argmin over the codebook can flip at a near
+    tie, so the decode without quantization is held to the tolerance, and
+    the share of code indices that differ is reported and bounded; the
+    quantized loss and gradient are held to the tolerance where no code
+    differs. Returns the share."""
+    z = torch.randn((2, 8, 8, 3), generator=torch.Generator().manual_seed(SEED))
+    results, codes = {}, {}
+    for dev in ("cpu", "cuda"):
+        for fnq in (False, True):
+            p = latent_problem(torch, np, LATENT_TINY_CFG, torch.float32, dev,
+                               force_not_quantize=fnq)
+            loss, z0, grad = engine.value_and_grad(p.loss_fn, z.to(dev))
+            results[(dev, fnq)] = [t.detach().cpu() for t in (loss, z0, grad)]
+        codes[dev] = p.ldm.first_stage.quantize.indices(
+            results[("cpu", True)][1].to(dev)).cpu()  # the same z0 on both
+        codes[dev + "_own"] = p.ldm.first_stage.quantize.indices(z0).cpu()
+    rel = {fnq: [float((a - b).norm() / b.norm()) for a, b in
+                 zip(results[("cuda", fnq)], results[("cpu", fnq)])] for fnq in (False, True)}
+    share = float((codes["cuda"] != codes["cpu"]).float().mean())
+    share_own = float((codes["cuda_own"] != codes["cpu_own"]).float().mean())
+    print(f"latent small reference (tiny latent config, f32, card vs CPU): relative L2 error "
+          f"without quantization: loss {rel[True][0]:.2e}, z0 {rel[True][1]:.2e}, gradient "
+          f"{rel[True][2]:.2e} (tolerance 2e-4); quantized: loss {rel[False][0]:.2e}, gradient "
+          f"{rel[False][2]:.2e}; codes that differ on the same z0 {share:.4f}, on each "
+          f"device's own z0 {share_own:.4f} of {codes['cpu'].numel()} "
+          f"(bound {CODE_FLIP_BOUND})")
+    check(max(rel[True]) < 2e-4, f"latent loss without quantization disagrees: {rel[True]}")
+    check(max(share, share_own) <= CODE_FLIP_BOUND, f"quantizer codes differ: {share}")
+    if share_own == 0:
+        check(max(rel[False]) < 2e-4, f"quantized latent loss disagrees: {rel[False]}")
+    return max(share, share_own)
+
+
+def latent_finite_or_fail(torch, p, z):
+    """The energy and its gradient at the start state are finite; where not,
+    name the first stage of the loss that is not, and fail."""
+    from nshmc_tpu_torch.hmc import engine
+
+    loss, _, grad = engine.value_and_grad(p.loss_fn, z)
+    if bool(torch.isfinite(loss).all()) and bool(torch.isfinite(grad).all()):
+        return loss
+    with torch.no_grad():
+        z0 = p.decode_z(z)
+        x0 = p.ldm.decode_first_stage(z0)
+    fail(f"latent energy not finite at the start state: DDIM z0 finite "
+         f"{bool(torch.isfinite(z0).all())}, decoded x0 finite {bool(torch.isfinite(x0).all())}, "
+         f"loss {loss.tolist()}, gradient finite {bool(torch.isfinite(grad).all())}")
+
+
+def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None):
+    """(b) The latent flagship: configs/ffhq_latent.yaml at full width, bf16,
+    random weights from seed 0, 92% random inpainting at 256^2, 3-step DDIM,
+    8 chains, 3 MH attempts at tau 1.0 / eps 0.05 (L = 20) through the
+    port's latent engine, every kernel count set to 0 just before and read
+    just after. The anneal lasts one attempt and one sample is kept, and
+    chain 0's accept uniform is 0: it accepts every finite proposal, so the
+    run reaches the geometric sigma update, the post-anneal pin of (tau,
+    eps) and the sample ring. With `trace_dir`, profiles one evaluation
+    instead and returns its device busy ms."""
+    from nshmc_tpu_torch.hmc import latent
+
+    dev = torch.device("cuda")
+    t0 = time.time()
+    p = latent_problem(torch, np, LATENT_CFG, torch.bfloat16, dev)
+    hcfg = latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
+                                  sampling=1, keep_samples=1)
+    state = latent.init_latent_chains(hcfg, CHAINS, p.z_shape, dev, p.gen)
+    print(f"latent flagship built in {time.time() - t0:.1f} s")
+    with torch.no_grad():  # the shapes each kernel sees, by forward hooks
+        unet_gn, unet_attn = kc.count_sites(p.ldm.unet, lambda: p.ldm.unet(
+            state.z, torch.full((CHAINS,), 500.0, device=dev)))
+        dec_gn, dec_attn = kc.count_sites(p.ldm.first_stage.decoder,
+                                          lambda: p.ldm.decode_first_stage(state.z))
+    check(unet_gn == kc.LATENT_UNET_GN_SITES, f"latent U-Net GN+SiLU sites {unet_gn}")
+    check(unet_attn == kc.LATENT_ATTN_SITES, f"latent U-Net attention blocks {unet_attn}")
+    check(dec_gn == kc.VQ_DECODER_GN_SITES and not dec_attn, f"VQ decoder sites {dec_gn}")
+    n_unet_gn, n_attn, n_dec_gn = (sum(v.values()) for v in (unet_gn, unet_attn, dec_gn))
+    print(f"latent U-Net forward: {n_unet_gn} GN+SiLU sites, {n_attn} attention blocks "
+          f"{dict(unet_attn)}; VQ decoder: {n_dec_gn} GN+SiLU sites at eps 1e-6 {dict(dec_gn)}")
+    loss0 = latent_finite_or_fail(torch, p, state.z)
+    print(f"latent energy at the start state finite: data loss {[round(v, 1) for v in loss0.tolist()]}")
+    if trace_dir is not None:
+        return trace_eval(torch, engine, p.loss_fn, state.z, trace_dir, "latent_path",
+                          "latent flagship")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    round_s, ring = [], {}
+
+    def timed(states, rnd):
+        torch.cuda.synchronize()
+        round_s.append(time.perf_counter())
+        if rnd == 1:  # the z0 the ring must hold after the last post-anneal accept
+            ring["z0"] = states.last_z0_accept[0].clone()
+
+    def draws():  # the engine's own draws, but chain 0 accepts every finite proposal
+        for _ in range(hcfg.total_attempts):
+            p0 = torch.randn(state.z.shape, generator=p.gen, device=dev) * math.sqrt(hcfg.m)
+            u = torch.rand((CHAINS,), generator=p.gen, device=dev)
+            u[0] = 0.0
+            yield p0, u
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=draws(), callback=timed)
+    torch.cuda.synchronize()
+    launches = {k: f.launches for k, f in counters.items()}
+    bwd_calls = gn.groupnorm_silu_backward.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    evals = hcfg.n_leapfrog + 1
+    n_evals = evals * hcfg.total_attempts
+    steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
+    evals_per_s = evals * len(steps[1:]) / sum(steps[1:])
+    print(f"latent path: {len(steps)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
+          f"bf16; attempt times {[round(v, 3) for v in steps]} s; {evals_per_s:.3f} energy+grad "
+          f"evals/s (attempts 2+), useful {LATENT_USEFUL_TFLOP * evals_per_s:.1f} TFLOP/s; peak "
+          f"memory {peak_gb:.2f} GB")
+    print(f"latent path kernel launches: {launches}; GN+SiLU backward calls {bwd_calls} "
+          f"(per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
+    # K1 at every attention block of the 3 eps-net forwards; K2a/K2b at every
+    # GN+SiLU site of those and of the decoder; K2c at the decoder's only (the
+    # eps-net is stop-gradded), each by the design bwd_design picks
+    want_bwd = {"gn_backward": 0, "gn_backward_twopass": 0}
+    for shape, n in kc.VQ_DECODER_GN_SITES.items():
+        want_bwd[BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]] += n * n_evals
+    want = {"attention": 3 * n_attn * n_evals, "gn_stats": (3 * n_unet_gn + n_dec_gn) * n_evals,
+            "gn_apply": (3 * n_unet_gn + n_dec_gn) * n_evals, **want_bwd}
+    check(bwd_calls == n_dec_gn * n_evals,
+          f"{bwd_calls} GN+SiLU backward calls, {n_dec_gn * n_evals} expected: one per VQ "
+          f"decoder site, none in the stop-gradded eps-net")
+    for k, v in launches.items():
+        check(v == want.get(k, 0), f"latent path: kernel {k} launched {v} times, "
+                                   f"{want.get(k, 0)} expected")
+    check(bool(torch.isfinite(out.z).all()), "latent chain state is not finite")
+    check(int(out.accepted[0]) == hcfg.total_attempts and int(out.n_kept[0]) == 2,
+          f"chain 0 did not accept every proposal: accepted {out.accepted.tolist()}")
+    check(abs(float(out.tau[0]) - hcfg.post_tau) < 1e-6
+          and abs(float(out.epsilon[0]) - hcfg.post_epsilon) < 1e-6
+          and abs(float(out.sigma_y[0]) - hcfg.sigma_0) < 1e-6,
+          f"chain 0 was not pinned after the anneal: {out.tau[0]}, {out.epsilon[0]}, "
+          f"{out.sigma_y[0]}")
+    check(torch.equal(out.samples[0, -1], ring["z0"]),
+          "chain 0's ring does not hold the z0 of its previous accepted proposal")
+    print(f"latent path state: accepted {out.accepted.tolist()}, n_kept {out.n_kept.tolist()}, "
+          f"tau {[round(v, 4) for v in out.tau.tolist()]}, sigma_y "
+          f"{[round(v, 4) for v in out.sigma_y.tolist()]}, last loss "
+          f"{[round(v, 1) for v in out.last_loss.tolist()]} (chain 0: anneal accept -> pin to "
+          f"({hcfg.post_tau}, {hcfg.post_epsilon}), sigma_y {hcfg.sigma_0} -> ring holds the "
+          f"previous accepted z0)")
+    return dict(launches=launches, evals_per_s=evals_per_s, peak_gb=peak_gb,
+                useful_tflops=LATENT_USEFUL_TFLOP * evals_per_s, n_leapfrog=hcfg.n_leapfrog,
+                attempts=hcfg.total_attempts, attempt_s=steps)
+
+
+def phase_latent_kernels(torch, attn, gn, kc):
+    """(c) K1 at the latent U-Net's three attention shapes in bf16 and f32,
+    and (d) K2a, K2b and K2c at the VQ decoder's GN+SiLU sites with eps
+    1e-6 (both dtypes, both affine forms; K2c each design that can take the
+    call and the wrapper, two calls bit-identical), K2a and K2b also at the
+    latent U-Net's sites, each against its plain version; the bf16 cases
+    timed. Returns {kernel: [records]}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"attention": [], "gn_stats": [], "gn_apply": [], "gn_backward": [],
+           "gn_backward_twopass": []}
+    for shape in kc.LATENT_ATTN_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            out["attention"].append(attention_case(torch, attn, kc, shape, dt, g, dev))
+    worst = {}
+    for part, (eps, sites) in kc.LATENT_GN_SITES.items():
+        for shape in sites:
+            b, r, cc = shape
+            for dt in (torch.bfloat16, torch.float32):
+                dname = str(dt).split(".")[1]
+                x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+                st_k, st_p = gn.channel_stats(x), gn.channel_stats_plain(x)
+                st_rel = float((st_k - st_p).abs().max() / st_p.abs().max())
+                mean_c, inv_c = gn.group_combine(st_p, r, gn.NUM_GROUPS, eps)
+                for form in kc.AFFINE_FORMS:
+                    aff = (cc,) if form == "per_channel" else (b, cc)
+                    sc = 1 + 0.3 * torch.randn(aff, generator=g, device=dev)
+                    bi = 0.3 * torch.randn(aff, generator=g, device=dev)
+                    y_k = gn.normalize_silu(x, mean_c, inv_c, sc, bi)
+                    y_p = gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
+                    diff = (y_k.float() - y_p.float()).abs()
+                    tol = 1e-4 if dt == torch.float32 else 2 ** -7 * y_p.float().abs() + 1e-3
+                    check(bool((diff <= tol).all()) and st_rel <= 1e-5,
+                          f"K2 {part} {shape} {dname} {form}: stats rel {st_rel:.2e}, "
+                          f"apply {float(diff.max()):.2e}")
+                    worst[(part, dname)] = max(worst.get((part, dname), 0.0), float(diff.max()))
+                    if part != "vq_decoder":
+                        continue
+                    inputs = kc.gn_inputs(shape, dt, form, g, dev, eps)
+                    for design in (*gn.bwd_designs(*shape, dt.itemsize, sms), None):
+                        res = kc.gn_backward_check(*inputs, design=design)
+                        check(res["ok"], f"K2c {design or 'wrapper'} {shape} {dname} {form} "
+                                         f"eps {eps:g}: {res}")
+                if part == "vq_decoder" and dt == torch.bfloat16:
+                    out["gn_stats"].append(gn_forward_times(torch, gn, x, "stats", eps))
+                    out["gn_apply"].append(gn_forward_times(torch, gn, x, "apply", eps))
+                    design = gn.bwd_design(*shape, 2, sms)
+                    out[BWD_KERNELS[design]].append(gn_backward_times(
+                        torch, gn, kc, shape, design, eps, g, dev))
+    print(f"K2 at the latent sites agree (eps 1e-6 at the VQ decoder's, 1e-5 at the U-Net's): "
+          f"apply worst abs err {worst}; K2c at every VQ decoder site, each design that can "
+          f"take it and the wrapper, two calls bit-identical")
+    return out
+
+
+def gn_forward_times(torch, gn, x, which, eps):
+    """K2a ("stats") or K2b ("apply") at x (B, R, C) bf16: kernel and plain
+    ms (CUDA events) and the bound."""
+    b, r, cc = x.shape
+    n = b * r * cc
+    if which == "stats":
+        ms = time_ms(lambda: gn.channel_stats(x))
+        plain = time_ms(lambda: gn.channel_stats_plain(x))
+        bms, by = bound_ms(n * 2 + b * 2 * cc * 4, 3 * n, "float32")
+    else:
+        mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
+        sc, bi = torch.ones((b, cc), device=x.device), torch.zeros((b, cc), device=x.device)
+        ms = time_ms(lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi))
+        plain = time_ms(lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi))
+        bms, by = bound_ms(2 * n * 2 + 4 * b * cc * 4, 8 * n, "float32")
+    print(f"K2 {which} {tuple(x.shape)} bf16 (VQ decoder site): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f}, bound {bms:.4f} ({by})")
+    return dict(shape=list(x.shape), dtype="bfloat16", ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by)
+
+
+def gn_backward_times(torch, gn, kc, shape, design, eps, g, dev):
+    """K2c's picked design at a VQ decoder site in bf16: device ms from CUDA
+    graphs, the plain version's ms (CUDA events) and the three-pass bound."""
+    inputs = kc.gn_inputs(shape, torch.bfloat16, "per_batch_channel", g, dev, eps)
+    ms = time_ms_graph(lambda: kc.GN_BWD_DESIGNS[design](*inputs))
+    plain = time_ms(lambda: gn.groupnorm_silu_backward_plain(*inputs))
+    b, r, cc = shape
+    n = b * r * cc
+    bms, by = bound_ms(3 * n * 2 + 6 * b * cc * 4, GN_BWD_OPS * n, "float32")
+    print(f"K2c {design} {shape} bf16 (VQ decoder site): kernel {ms:.4f} ms (CUDA graphs), "
+          f"plain {plain:.4f}, bound {bms:.4f} ({by})")
+    return dict(shape=list(shape), dtype="bfloat16", ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by)
+
+
+def phase_latent_cli(np):
+    """(e) The port's CLI, --algo hmc_latent on configs/ffhq_latent.yaml
+    (f32, 2 chains, one anneal attempt and two post-anneal ones at L = 2):
+    artifacts and the summary line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        from PIL import Image
+
+        Image.fromarray((synthetic_image(np, 256, SEED + 4) * 255).astype(np.uint8)).save(
+            os.path.join(data, "face.png"))
+        cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config", LATENT_CFG,
+               "--device", "cuda", "--algo", "hmc_latent", "--deg", "inpaint_random",
+               "--chains", "2", "--tau", "0.1", "--epsilon", "0.05", "--latent_epochs", "1",
+               "--latent_sampling", "1", "--verbose", "--data_path", data,
+               "-i", os.path.join(tmp, "out")]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
+              f"latent CLI failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        summary = json.loads(lines[-1])["summary"]
+        check(math.isfinite(summary.get("psnr", float("nan"))), f"latent CLI summary {summary}")
+        for f in ("0.png", "orig_0.png", "y0_0.png", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(tmp, "out", f)), f"latent CLI did not write {f}")
+        attempts = [x for x in lines if x.strip().startswith("attempt ")]
+        check(len(attempts) == 3, f"latent CLI ran {len(attempts)} attempts, 3 expected")
+        print(f"latent CLI (configs/ffhq_latent.yaml, f32, 2 chains, cuda) in "
+              f"{time.time() - t0:.1f} s: {attempts[-1].strip()}; {lines[-1]}")
 
 
 def main():
@@ -379,42 +758,24 @@ def main():
 
     # one no-grad forward at the main path's batch records the shapes each
     # kernel sees (GroupNorm+SiLU sites and attention blocks)
-    gn_sites, attn_sites = {}, {}
-
-    def gn_hook(mod, args, out):
-        xx = args[0]
-        key = (xx.shape[0], xx.shape[2] * xx.shape[3], xx.shape[1], len(args) > 1)
-        gn_sites[key] = gn_sites.get(key, 0) + 1
-
-    def attn_hook(mod, args, out):
-        xx = args[0]
-        key = (xx.shape[0], xx.shape[2] * xx.shape[3], mod.heads, xx.shape[1] // mod.heads)
-        attn_sites[key] = attn_sites.get(key, 0) + 1
-
-    from nshmc_tpu_torch.models.nn import GroupNormSiLU
-    hooks = [m.register_forward_hook(gn_hook) for m in model.modules()
-             if isinstance(m, GroupNormSiLU)]
-    hooks += [m.register_forward_hook(attn_hook) for m in model.modules()
-              if isinstance(m, unet.AttentionBlock)]
+    warm = []
     with torch.no_grad():
-        warm = model(state.x, torch.full((CHAINS,), 750.0, device=dev))
-    for h in hooks:
-        h.remove()
+        gn_shapes, attn_sites = kc.count_sites(model, lambda: warm.append(
+            model(state.x, torch.full((CHAINS,), 750.0, device=dev))))
+    warm = warm[0]
     torch.cuda.synchronize()
     check(torch.isfinite(warm).all().item() and warm.shape == (CHAINS, d, d, 6),
           "flagship U-Net forward is not finite / has the wrong shape")
-    n_gn, n_attn = sum(gn_sites.values()), sum(attn_sites.values())
-    print(f"flagship U-Net forward: {n_gn} GroupNorm+SiLU sites over {len(gn_sites)} shapes, "
+    n_gn, n_attn = sum(gn_shapes.values()), sum(attn_sites.values())
+    print(f"flagship U-Net forward: {n_gn} GroupNorm+SiLU sites over {len(gn_shapes)} shapes, "
           f"{n_attn} attention blocks over {len(attn_sites)} shapes")
 
     if trace_dir is not None:
         trace_eval(torch, engine, loss_fn, state.x, trace_dir)
+        phase_latent_flagship(torch, np, engine, kc, gn, None, trace_dir)
         return
 
     # the main path's kernels, and the probe kernels, which it must not run
-    gn_shapes = {}  # (B, rows, C) -> GN+SiLU sites per U-Net forward, both forms
-    for (b, r, cc, _), n_sites in gn_sites.items():
-        gn_shapes[(b, r, cc)] = gn_shapes.get((b, r, cc), 0) + n_sites
     check(gn_shapes == kc.FLAGSHIP_GN_SITES,
           f"GN+SiLU sites {gn_shapes} are not kernel_check.FLAGSHIP_GN_SITES")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -498,39 +859,11 @@ def main():
     def rec(name, **kw):
         records.setdefault(name, {}).update(kw)
 
-    attn_shapes = sorted(attn_sites) + [(CHAINS, 1024, 8, 32)]  # + the latent U-Net's
-    for (b, t, h, ch) in attn_shapes:
+    for shape in sorted(attn_sites):
         for dt in (torch.bfloat16, torch.float32):
-            q, k, v = kc.qkv_inputs((b, t, h, ch), dt, g, dev)
-            res = kc.attention_check(q, k, v)
-            # gradient through the autograd.Function vs autograd of the plain version
-            qs = [x.detach().float().to(dt).requires_grad_(True) for x in (q, k, v)]
-            gk = torch.autograd.grad((attn.attention(*qs).float() ** 2).sum(), qs)
-            gp = torch.autograd.grad((attn.attention_plain(*qs).float() ** 2).sum(), qs)
-            gerr = max(float((a.float() - b_.float()).norm() / b_.float().norm())
-                       for a, b_ in zip(gk, gp))
-            gtol = 1e-4 if dt == torch.float32 else 3e-2
-            dname = str(dt).split(".")[1]
-            # device ms per call from CUDA graphs of 20 calls (the host's
-            # launch cost left out: at these sizes it exceeds the kernels'),
-            # and the kernel's eager ms per call, host included
-            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-            ms = time_ms_graph(lambda: attn.attention_forward(q, k, v))
-            plain = time_ms_graph(lambda: attn.attention_plain(q, k, v))
-            lib = time_ms_graph(lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, scale=1.0 / math.sqrt(ch)))
-            eager = time_ms(lambda: attn.attention_forward(q, k, v))
-            nbytes = 4 * b * t * h * ch * q.element_size()
-            bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch, dname)
-            print(f"K1 attention {(b, t, h, ch)} {dname}: {kc.attention_summary(res)}; grad rel "
-                  f"err {gerr:.2e} (tol {gtol}); device ms per call: kernel {ms:.4f}, plain "
-                  f"{plain:.4f}, sdpa {lib:.4f} (kernel/sdpa {ms / lib:.2f}), bound {bms:.4f} "
-                  f"({by}); eager kernel call {eager:.4f} ms")
-            check(res["ok"] and gerr <= gtol, f"attention {(b, t, h, ch)} {dname} disagrees")
-            if (b, t, h, ch, dt) == (CHAINS, 256, 8, 64, torch.bfloat16):
-                rec("attention", ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms,
-                    bound_by=by, max_abs_err=res["max_abs_err"], tolerance=res["tolerance"],
-                    shape=[b, t, h, ch], dtype=dname)
+            r_ = attention_case(torch, attn, kc, shape, dt, g, dev)
+            if (*shape, dt) == (CHAINS, 256, 8, 64, torch.bfloat16):
+                rec("attention", **r_)
     edge = {}
     for shape in ATTN_EDGE_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
@@ -728,6 +1061,14 @@ def main():
     for name, rec_ in phase_probes(torch, (CHAINS, d * d, mcfg.model_channels)).items():
         rec(name, **rec_)
 
+    # ---- 7. the latent path ----------------------------------------------------------------
+    t0 = time.time()
+    code_share = phase_latent_small(torch, np, engine)
+    latent_run = phase_latent_flagship(torch, np, engine, kc, gn, counters)
+    latent_kernels = phase_latent_kernels(torch, attn, gn, kc)
+    phase_latent_cli(np)
+    print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
+
     probe_src = "nshmc_tpu_torch/csrc/stream_probe.cu"
     sources = {"attention": ("cuda", "nshmc_tpu_torch/csrc/attention.cu",
                              "nshmc_tpu/ops/attention.py:44"),
@@ -749,11 +1090,14 @@ def main():
         on_main = name in MAIN_PATH_KERNELS or name in BWD_KERNELS.values()
         # `launches`: the count of the kernel's own path (the flagship HMC run,
         # or the probe's timed cases for P1-P4), each set to 0 just before it;
-        # `main_path_launches`: every kernel's count over the flagship HMC run
+        # `main_path_launches`: every kernel's count over the flagship HMC run;
+        # `latent_path_launches`: over the latent flagship's HMC run
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
                         "launches": launches[name] if on_main else r_["launches"],
                         "path": "flagship HMC" if on_main else "stream probe",
                         "main_path_launches": launches[name],
+                        "latent_path_launches": latent_run["launches"][name],
+                        "latent_shapes": latent_kernels.get(name, []),
                         "max_abs_err": r_["max_abs_err"],
                         "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"], "library_ms": r_["library_ms"],
@@ -763,7 +1107,13 @@ def main():
                                               "picked_at_this_shape") if k in r_}})
     print(json.dumps({"kernels": kernels, "main_path": {
         "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
-        "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog}}))
+        "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
+        "latent_path": {
+            "energy_grad_evals_per_s": latent_run["evals_per_s"],
+            "peak_memory_gb": latent_run["peak_gb"],
+            "useful_tflop_per_s": latent_run["useful_tflops"], "chains": CHAINS,
+            "attempts": latent_run["attempts"], "n_leapfrog": latent_run["n_leapfrog"],
+            "attempt_s": latent_run["attempt_s"], "quantizer_codes_differing": code_share}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

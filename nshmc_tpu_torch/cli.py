@@ -1,7 +1,8 @@
 """Experiment entry point: pixel noise-space HMC (port of the `--algo hmc` path
-of nshmc_tpu/cli.py).
+of nshmc_tpu/cli.py) and, through cli_latent.py, latent noise-space HMC
+(`--algo hmc_latent`).
 
-Parses the JAX CLI's flags for that path, loads the YAML config, builds
+Parses the JAX CLI's flags for those paths, loads the YAML config, builds
 the ADM U-Net prior and the degradation, synthesizes y0 = H(x) + sigma_0 *
 noise (sigma_0 doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does),
 runs the chains as one batch, and writes {idx}.png, orig_{idx}.png,
@@ -10,6 +11,7 @@ y0_{idx}.png, std_dev_map_{idx}.png, metrics.jsonl and a final
 
 Run:  python -m nshmc_tpu_torch.cli --algo hmc --deg inpaint_random \
           --config configs/ffhq.yaml -i out/
+      python -m nshmc_tpu_torch.cli --algo hmc_latent --config configs/ffhq_latent.yaml
 """
 from __future__ import annotations
 
@@ -33,7 +35,8 @@ _UNPORTED_FLAGS = {"checkpoint_dir": ("--checkpoint-dir", ""),
 def get_parser():
     p = argparse.ArgumentParser(description="nshmc_tpu_torch sampling CLI")
     p.add_argument("--config", default="configs/ffhq.yaml")
-    p.add_argument("--algo", default="hmc", help="hmc (the only ported sampler)")
+    p.add_argument("--algo", default="hmc",
+                   help="hmc | hmc_latent (the ported samplers)")
     p.add_argument("--deg", default="inpaint_random",
                    help="degradation: inpaint_random | inpaint_box")
     p.add_argument("--sigma_0", type=float, default=0.05)
@@ -45,6 +48,15 @@ def get_parser():
     p.add_argument("--hmc_epochs", type=int, default=60, help="HMC annealing epochs")
     p.add_argument("--hmc_sampling", type=int, default=20,
                    help="HMC burn-in and kept-sample epochs")
+    p.add_argument("--sigma_y", type=float, default=1.0,
+                   help="latent HMC geometric anneal start")
+    p.add_argument("--latent_epochs", type=int, default=50,
+                   help="latent HMC anneal attempts")
+    p.add_argument("--latent_sampling", type=int, default=10,
+                   help="latent HMC post-anneal half-window")
+    p.add_argument("--latent_full_grad", action="store_true",
+                   help="differentiate through the latent eps-net in hmc_latent (the "
+                        "reference stop-grads it; default off)")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("-i", "--image_folder", default="out")
     p.add_argument("--subset_start", type=int, default=0)
@@ -68,11 +80,18 @@ def get_parser():
     return p
 
 
+LATENT_ALGOS = ("hmc_latent", "resample", "resample_original")
+
+
 def _check_ported(opt):
-    if opt.algo != "hmc":
+    if opt.algo in LATENT_ALGOS[1:]:
         raise NotImplementedError(
-            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; only the pixel "
-            "'hmc' sampler is (ROADMAP.md, Queue 1)")
+            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; the latent path runs "
+            "'hmc_latent' only (ROADMAP.md, Queue 1 item 10)")
+    if opt.algo not in ("hmc", "hmc_latent"):
+        raise NotImplementedError(
+            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; only the 'hmc' and "
+            "'hmc_latent' samplers are (ROADMAP.md, Queue 1)")
     for dest, (flag, default) in _UNPORTED_FLAGS.items():
         if getattr(opt, dest) != default:
             raise NotImplementedError(
@@ -90,6 +109,46 @@ def _device(name: str) -> torch.device:
 def load_config(path):
     with open(path) as f:
         return yaml.safe_load(f)
+
+
+def observe(opt, operator, path, idx, d, sigma_0, device):
+    """Load image `idx`, synthesize y0 = H(x) + sigma_0 * noise from the
+    image's generator (seed + idx) and save y0_{idx}.png and orig_{idx}.png.
+    Returns (x01 (d, d, 3) numpy, y0 (1, d_y), the generator)."""
+    from .utils import images as im
+
+    x01 = im.load_image(path, d)
+    x_orig = im.data_transform(torch.from_numpy(x01).to(device))[None]
+    gen = torch.Generator(device=device).manual_seed(opt.seed + idx)
+    y0 = operator.H_img(x_orig)
+    y0 = y0 + sigma_0 * torch.randn(y0.shape, generator=gen, device=device)
+    im.save_image(im.inverse_data_transform(operator.H_pinv_img(y0)[0]),
+                  os.path.join(opt.image_folder, f"y0_{idx}.png"))
+    im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
+    return x01, y0, gen
+
+
+def record(opt, idx, path, samples01, x01, dt, stats):
+    """Write {idx}.png (the last sample), std_dev_map_{idx}.png (several
+    samples) and the image's metrics.jsonl line; add PSNR and SSIM of every
+    sample (S, H, W, C) in [0, 1] to `stats`."""
+    from .utils import images as im
+    from .utils.metrics import psnr, ssim
+
+    im.save_image(samples01[-1], os.path.join(opt.image_folder, f"{idx}.png"))
+    if samples01.shape[0] > 1:
+        im.save_std_dev_map(samples01, os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
+    origs = torch.from_numpy(x01)[None].expand_as(samples01)
+    vals = {"psnr": psnr(samples01, origs).numpy(), "ssim": ssim(samples01, origs).numpy()}
+    stats.update(vals)
+    rec = {"idx": idx, "file": os.path.basename(path), "algo": opt.algo,
+           "deg": opt.deg, "wall_s": round(dt, 2),
+           **{k: float(np.mean(v)) for k, v in vals.items()}}
+    with open(os.path.join(opt.image_folder, "metrics.jsonl"), "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    print(f"[{idx}] {os.path.basename(path)}: "
+          + ", ".join(f"{k}={np.mean(v):.4f}" for k, v in vals.items())
+          + f"  ({dt:.1f}s)")
 
 
 def build_pixel_model(cfg, opt, device):
@@ -115,7 +174,7 @@ def run_pixel(opt):
     from .sampling.ddim import make_decoder
     from .schedules import DDIMSequence, DiffusionSchedule
     from .utils import images as im
-    from .utils.metrics import RunningStats, psnr, ssim
+    from .utils.metrics import RunningStats, psnr
 
     _check_ported(opt)
     device = _device(opt.device)
@@ -141,16 +200,7 @@ def run_pixel(opt):
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
     for idx, path in enumerate(files):
-        x01 = im.load_image(path, d)
-        x_orig = im.data_transform(torch.from_numpy(x01).to(device))[None]
-        gen = torch.Generator(device=device).manual_seed(opt.seed + idx)
-        y0 = operator.H_img(x_orig)
-        y0 = y0 + sigma_0 * torch.randn(y0.shape, generator=gen, device=device)
-        y_pinv = operator.H_pinv_img(y0)
-        im.save_image(im.inverse_data_transform(y_pinv[0]),
-                      os.path.join(opt.image_folder, f"y0_{idx}.png"))
-        im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
-
+        x01, y0, gen = observe(opt, operator, path, idx, d, sigma_0, device)
         orig01 = torch.from_numpy(x01)[None]
 
         def report(states, rnd):
@@ -166,24 +216,7 @@ def run_pixel(opt):
         out = run_hmc(loss_fn, hmc_cfg, states, gen,
                       callback=report if opt.verbose else None)
         samples01 = im.inverse_data_transform(out.samples.reshape(-1, d, d, c)).cpu()
-        dt = time.time() - t0
-
-        im.save_image(samples01[-1], os.path.join(opt.image_folder, f"{idx}.png"))
-        if samples01.shape[0] > 1:
-            im.save_std_dev_map(samples01,
-                                os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
-        origs = orig01.expand_as(samples01)
-        vals = {"psnr": psnr(samples01, origs).numpy(),
-                "ssim": ssim(samples01, origs).numpy()}
-        stats.update(vals)
-        rec = {"idx": idx, "file": os.path.basename(path), "algo": opt.algo,
-               "deg": opt.deg, "wall_s": round(dt, 2),
-               **{k: float(np.mean(v)) for k, v in vals.items()}}
-        with open(os.path.join(opt.image_folder, "metrics.jsonl"), "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        print(f"[{idx}] {os.path.basename(path)}: "
-              + ", ".join(f"{k}={np.mean(v):.4f}" for k, v in vals.items())
-              + f"  ({dt:.1f}s)")
+        record(opt, idx, path, samples01, x01, time.time() - t0, stats)
 
     summary = stats.summary()
     print(json.dumps({"summary": summary}))
@@ -191,7 +224,12 @@ def run_pixel(opt):
 
 
 def main(argv=None):
-    return run_pixel(get_parser().parse_args(argv))
+    opt = get_parser().parse_args(argv)
+    if opt.algo in LATENT_ALGOS:
+        from .cli_latent import run_latent
+
+        return run_latent(opt)
+    return run_pixel(opt)
 
 
 if __name__ == "__main__":

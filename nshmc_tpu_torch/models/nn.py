@@ -7,8 +7,9 @@ channels, and `x.permute(0, 2, 3, 1)` is the (free) NHWC view.
 
 Norms reduce in float32 islands whatever the activation dtype, in the
 per-channel-sums form of `ChanStatsGroupNorm` (nshmc_tpu/models/nn.py:53-102):
-per-channel fp32 sums, a (B, groups) combine with var = E[x^2] - E[x]^2,
-eps 1e-5, output cast back to the activation dtype.
+per-channel fp32 sums, a (B, groups) combine with var = max(E[x^2] -
+E[x]^2, 0), eps 1e-5 (1e-6 in the VQ autoencoder), output cast back to the
+activation dtype.
 """
 from __future__ import annotations
 
@@ -51,18 +52,20 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
 
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in an fp32 island, ChanStatsGroupNorm form, no
-    activation: the AttentionBlock's `norm` (nshmc_tpu/models/unet.py:212).
-    Parameter names match the reference's GroupNorm32 (weight, bias)."""
+    activation: the AttentionBlock's `norm` (nshmc_tpu/models/unet.py:212;
+    eps 1e-6 in the VQ autoencoder's AttnBlock). Parameter names match the
+    reference's GroupNorm32 (weight, bias)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         x3 = nhwc(x).reshape(b, h * w, c)
-        mean_c, inv_c = group_combine(channel_stats_plain(x3), h * w, NUM_GROUPS, EPS)
+        mean_c, inv_c = group_combine(channel_stats_plain(x3), h * w, NUM_GROUPS, self.eps)
         y = (x3.float() - mean_c[:, None]) * inv_c[:, None] * self.weight + self.bias
         return nchw(y.to(x.dtype).reshape(b, h, w, c))
 
@@ -71,11 +74,14 @@ class GroupNormSiLU(nn.Module):
     """GroupNorm(32, fp32 stats) -> affine -> SiLU through the fused kernel
     (ops/groupnorm.py). With (scale, shift) — the scale-shift `out_norm`,
     nshmc_tpu/models/unet.py:170-177 — the affine becomes per (batch,
-    channel): weight * (1 + scale) and bias * (1 + scale) + shift.
-    Parameter names match the reference's GroupNorm32 (weight, bias)."""
+    channel): weight * (1 + scale) and bias * (1 + scale) + shift. eps is
+    1e-5 in the U-Net, 1e-6 in the VQ autoencoder (nshmc_tpu/models/ldm/
+    autoencoder.py:32-41). Parameter names match the reference's GroupNorm32
+    (weight, bias)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, eps: float = EPS):
         super().__init__()
+        self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
@@ -85,7 +91,7 @@ class GroupNormSiLU(nn.Module):
         if scale is not None:
             s = 1.0 + scale.float()
             weight, bias = weight * s, bias * s + shift.float()
-        return nchw(groupnorm_silu(nhwc(x), weight, bias, NUM_GROUPS, EPS))
+        return nchw(groupnorm_silu(nhwc(x), weight, bias, NUM_GROUPS, self.eps))
 
 
 def avg_pool_2x(x: torch.Tensor) -> torch.Tensor:

@@ -121,6 +121,8 @@ def _from_jax(kind: str, leaves) -> Dict[str, np.ndarray]:
         return {"weight": np.asarray(leaves["kernel"]).T, "bias": np.asarray(leaves["bias"])}
     if kind == "groupnorm":
         return {"weight": np.asarray(leaves["scale"]), "bias": np.asarray(leaves["bias"])}
+    if kind == "embed":
+        return {"weight": np.asarray(leaves["embedding"])}
     raise ValueError(f"layer kind {kind!r} is not ported")
 
 

@@ -19,7 +19,8 @@ Hopper translation (Triton, launched only for CUDA tensors):
     across grid steps becomes a deterministic two-level reduction: each
     program writes the fp32 sums of its own row range (no float atomics,
     so the result is the same on every run), torch adds the partials and
-    does the group combine (var = E[x^2] - E[x]^2, eps 1e-5), then the apply
+    does the group combine (var = max(E[x^2] - E[x]^2, 0), eps 1e-5 in the
+    U-Net, 1e-6 in the VQ autoencoder), then the apply
     kernel streams x once more.
   - Each program loads 2-D (rows, 128-channel) tiles: a row of a
     channels-last tensor is C contiguous values, so loads are coalesced.
@@ -167,15 +168,18 @@ channel_stats.launches = 0
 def group_combine(stats: torch.Tensor, rows: int, num_groups: int = NUM_GROUPS,
                   eps: float = EPS):
     """(B, 2, C) channel sums -> channel-expanded (mean, rsqrt(var + eps)),
-    each (B, C) fp32, with var = E[x^2] - E[x]^2 over each group
-    (nshmc_tpu/ops/groupnorm.py:104-112)."""
+    each (B, C) fp32, with var = max(E[x^2] - E[x]^2, 0) over each group
+    (nshmc_tpu/ops/groupnorm.py:104-112). The clip is flax `nn.GroupNorm`'s
+    (the VQ autoencoder's norms): a group with a large mean and a small
+    spread can round E[x^2] - E[x]^2 below 0, where rsqrt(var + eps) would
+    be NaN at eps 1e-6."""
     b, _, c = stats.shape
     cg = c // num_groups
     n = rows * cg
     g_sum = stats[:, 0].reshape(b, num_groups, cg).sum(-1)
     g_sum2 = stats[:, 1].reshape(b, num_groups, cg).sum(-1)
     mean = g_sum / n
-    var = g_sum2 / n - mean**2
+    var = torch.clamp(g_sum2 / n - mean**2, min=0.0)
     inv = torch.rsqrt(var + eps)
     return (mean.repeat_interleave(cg, dim=1).contiguous(),
             inv.repeat_interleave(cg, dim=1).contiguous())
@@ -413,6 +417,25 @@ def bwd_design(b: int, r: int, c: int, elem_size: int, sms: int,
     return "one_launch" if slabs <= BWD_ONE_LAUNCH_MAX_SLABS else "twopass"
 
 
+def bwd_designs(b: int, r: int, c: int, elem_size: int, sms: int,
+                num_groups: int = NUM_GROUPS) -> tuple:
+    """The designs that can take x: (b, r, c) in one kernel call, whichever
+    `bwd_design` picks: none where the wrapper cuts the call into channel
+    chunks, "one_launch" where `bwd_plan` has a plan, "twopass" where its
+    finish kernel's shared memory holds the batch's group sums."""
+    if bwd_channel_chunks(c, num_groups, elem_size) > 1:
+        return ()
+    out = []
+    try:
+        bwd_plan(b, r, c, elem_size, sms, num_groups)
+        out.append("one_launch")
+    except ValueError:
+        pass
+    if 8 * b * (c // num_groups) <= _BWD_FINISH_SMEM:
+        out.append("twopass")
+    return tuple(out)
+
+
 _bwd_counter_bufs: dict = {}
 
 
@@ -466,13 +489,30 @@ def groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias,
     return dx, dscale, dbias
 
 
+def bwd_channel_chunks(c: int, num_groups: int, elem_size: int) -> int:
+    """Into how many channel chunks of whole groups K2c cuts a call: 1 where
+    a row's 16-byte vectors fit the block's 256 threads (C <= 2048 in bf16,
+    1024 in f32), else the fewest chunks (dividing the group count) that do,
+    each a multiple of 8 channels (the latent U-Net's 1120-1792-channel
+    decoder inputs in f32)."""
+    limit = _BWD_THREADS * (16 // elem_size)
+    for n in range(1, num_groups + 1):
+        if num_groups % n == 0 and c % n == 0 and c // n <= limit and (c // n) % 8 == 0:
+            return n
+    raise ValueError(f"groupnorm_silu_backward: no chunks of whole groups of C = {c} "
+                     f"({num_groups} groups) fit {limit} channels")
+
+
 def groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias,
                             num_groups: int = NUM_GROUPS):
     """K2c: CUDA tensors launch one of csrc/groupnorm_bwd.cu's two designs,
     the one `bwd_design` picks for the shape (`launch_one` or
-    `launch_twopass`; `.launches` counts the calls), CPU tensors take the
-    plain version, anything else raises. Calls on one device share its
-    handoff counters, so they must not run concurrently on two streams."""
+    `launch_twopass`; `.launches` counts the kernel calls), CPU tensors take
+    the plain version, anything else raises. A C too wide for the kernels'
+    row layout is cut into channel chunks of whole groups
+    (`bwd_channel_chunks`), one kernel call each. Calls on one device share
+    its handoff counters, so they must not run concurrently on two
+    streams."""
     if x.device.type == "cpu":
         return groupnorm_silu_backward_plain(x, g, mean_c, inv_c, scale, bias, num_groups)
     if x.device.type != "cuda":
@@ -483,10 +523,10 @@ def groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias,
             or not g.is_contiguous():
         raise ValueError(f"groupnorm_silu_backward: cotangent {tuple(g.shape)} {g.dtype} "
                          f"on {g.device} for {tuple(x.shape)} {x.dtype} on {x.device}")
-    vec = 16 // x.element_size()
-    if c % 8 or c % num_groups or c // vec > _BWD_THREADS:
+    if c % 8 or c % num_groups:
         raise ValueError(f"groupnorm_silu_backward: C = {c} must be a multiple of 8 and of "
-                         f"{num_groups} groups, at most {_BWD_THREADS * vec} for {x.dtype}")
+                         f"{num_groups} groups")
+    chunks = bwd_channel_chunks(c, num_groups, x.element_size())
     if scale.shape != bias.shape or scale.shape not in ((c,), (b, c)):
         raise ValueError(f"groupnorm_silu_backward: affine {tuple(scale.shape)} "
                          f"for {tuple(x.shape)}")
@@ -499,6 +539,12 @@ def groupnorm_silu_backward(x, g, mean_c, inv_c, scale, bias,
                          f"{tuple(inv_c.shape)} for {tuple(x.shape)}")
     if x.data_ptr() % 16 or g.data_ptr() % 16:
         raise ValueError("groupnorm_silu_backward: x and g must be 16-byte aligned")
+    if chunks > 1:  # whole groups a chunk: each is a GroupNorm of its own
+        w = c // chunks
+        parts = [groupnorm_silu_backward(
+            *(t[..., i * w:(i + 1) * w].contiguous() for t in (x, g, mean_c, inv_c, scale, bias)),
+            num_groups // chunks) for i in range(chunks)]
+        return tuple(torch.cat(p, dim=-1) for p in zip(*parts))
     inputs = (x, g) + tuple(t.contiguous() for t in (mean_c, inv_c, scale, bias))
     sms = _sm_count(x.device.index or 0)
     if bwd_design(b, r, c, x.element_size(), sms, num_groups) == "twopass":

@@ -87,6 +87,18 @@ class DiffusionSchedule:
         return cls(betas=as_t(betas), alphas_cumprod=as_t(alphas_cumprod),
                    alphas_cumprod_padded=as_t(padded))
 
+    @classmethod
+    def from_alphas_cumprod(cls, alphas_cumprod, device="cuda") -> "DiffusionSchedule":
+        """From a model's registered alpha-bar table (an LDM checkpoint's
+        `alphas_cumprod` buffer; nshmc_tpu/schedules.py:96-109)."""
+        alphas_cumprod = np.asarray(alphas_cumprod, np.float64)
+        prev = np.concatenate([[1.0], alphas_cumprod[:-1]])
+        betas = 1.0 - alphas_cumprod / prev
+        padded = np.concatenate([[1.0], alphas_cumprod])
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+        return cls(betas=as_t(betas), alphas_cumprod=as_t(alphas_cumprod),
+                   alphas_cumprod_padded=as_t(padded))
+
 
 @dataclasses.dataclass(frozen=True)
 class DDIMSequence:

@@ -7,14 +7,19 @@ It builds csrc/attention.cu and csrc/groupnorm_bwd.cu, prints each
 kernel's registers, spills and shared memory (nvcc -Xptxas -v), then
 checks, on seeded random inputs:
   - K1 at the flagship's attention shapes (8, 256, 8, 64) and (8, 64, 8, 64),
-    the latent U-Net's (8, 1024, 8, 32), and edge shapes (2, T, 2, ch) for
+    the latent U-Net's (LATENT_ATTN_SHAPES: 14, 21 and 28 heads of 32
+    channels at 1024, 256 and 64 tokens), and edge shapes (2, T, 2, ch) for
     T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the tensor-core
     kernel) and f32 (the scalar kernel);
   - K2c, both of its designs (the one launch and the two-pass one, each
     called directly, whichever the wrapper would pick), at the flagship's 18
     GN+SiLU shapes (FLAGSHIP_GN_SITES) and at GN_SHAPES (smaller and ragged
     ones), in bf16 and f32, with a (C,) and a (B, C) affine; each case also
-    calls the design twice and requires bit-identical dx, dscale and dbias.
+    calls the design twice and requires bit-identical dx, dscale and dbias;
+  - K2c at the latent path's GN+SiLU shapes (LATENT_GN_SITES: the VQ
+    decoder's at eps 1e-6, the latent U-Net's, with 7 to 56 channels a
+    group): each design that can take the call, and the wrapper, which cuts
+    the f32 calls wider than 1024 channels into chunks of whole groups.
 Each case prints one line; the run exits 1 if any case disagrees. No time
 is measured: this is the build-and-check step before a kernel is timed.
 `chip_smoke.py` phase 3 uses the same checks at the main path's shapes.
@@ -56,7 +61,11 @@ from ..ops import groupnorm as gn
 from ._bench import card, resolve_device
 
 SOURCES = ("attention.cu", "groupnorm_bwd.cu")
-ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64), (8, 1024, 8, 32)] + [
+# the latent U-Net's attention blocks (configs/ffhq_latent.yaml, 8 chains):
+# (B, T, heads, ch) at ds 2, 4, 8 -> blocks a forward
+LATENT_ATTN_SITES = {(8, 1024, 14, 32): 5, (8, 256, 21, 32): 5, (8, 64, 28, 32): 6}
+LATENT_ATTN_SHAPES = list(LATENT_ATTN_SITES)
+ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64)] + LATENT_ATTN_SHAPES + [
     (2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64)]
 GN_SHAPES = [(8, 65536, 128), (8, 16384, 256), (8, 1024, 512), (8, 64, 512), (3, 1000, 96),
              (1, 17, 32)]
@@ -68,8 +77,52 @@ FLAGSHIP_GN_SITES = {(8, 65536, 256): 2, (8, 65536, 128): 7, (8, 16384, 384): 1,
                      (8, 1024, 768): 1, (8, 1024, 512): 2, (8, 1024, 256): 7,
                      (8, 256, 1024): 1, (8, 256, 768): 1, (8, 256, 512): 6, (8, 256, 256): 2,
                      (8, 64, 1024): 2, (8, 64, 512): 10}
+# the latent path's GN+SiLU sites, (B, rows, C) at 8 chains -> sites a
+# forward (configs/ffhq_latent.yaml): the VQ decoder's 23, eps 1e-6 ...
+VQ_DECODER_GN_SITES = {(8, 4096, 512): 10, (8, 16384, 512): 1, (8, 16384, 256): 5,
+                       (8, 65536, 256): 1, (8, 65536, 128): 6}
+# ... and the latent U-Net's 45 (eps 1e-5; the decoder half's inputs carry
+# the skip channels: 448 to 1792)
+LATENT_UNET_GN_SITES = {(8, 4096, 224): 8, (8, 4096, 448): 2, (8, 4096, 672): 1,
+                        (8, 1024, 224): 1, (8, 1024, 448): 6, (8, 1024, 672): 1,
+                        (8, 1024, 896): 1, (8, 1024, 1120): 1,
+                        (8, 256, 448): 1, (8, 256, 672): 6, (8, 256, 1120): 1,
+                        (8, 256, 1344): 1, (8, 256, 1568): 1,
+                        (8, 64, 672): 1, (8, 64, 896): 10, (8, 64, 1568): 1, (8, 64, 1792): 2}
+LATENT_GN_SITES = {"vq_decoder": (1e-6, VQ_DECODER_GN_SITES),
+                   "latent_unet": (1e-5, LATENT_UNET_GN_SITES)}
 GN_BWD_DESIGNS = {"one_launch": gn.launch_one, "twopass": gn.launch_twopass}
 AFFINE_FORMS = ("per_channel", "per_batch_channel")
+
+
+def count_sites(root: torch.nn.Module, fn):
+    """Run fn() with forward hooks on every GroupNorm+SiLU and U-Net
+    attention block under `root`: ({(B, rows, C): GN+SiLU sites},
+    {(B, T, heads, ch): attention blocks})."""
+    from ..models.nn import GroupNormSiLU
+    from ..models.unet import AttentionBlock
+
+    gn_sites, attn_sites = {}, {}
+
+    def gn_hook(mod, args, out):
+        key = (args[0].shape[0], args[0].shape[2] * args[0].shape[3], args[0].shape[1])
+        gn_sites[key] = gn_sites.get(key, 0) + 1
+
+    def attn_hook(mod, args, out):
+        b, c, hh, ww = args[0].shape
+        key = (b, hh * ww, mod.heads, c // mod.heads)
+        attn_sites[key] = attn_sites.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(gn_hook) for m in root.modules()
+             if isinstance(m, GroupNormSiLU)]
+    hooks += [m.register_forward_hook(attn_hook) for m in root.modules()
+              if isinstance(m, AttentionBlock)]
+    try:
+        fn()
+    finally:
+        for h in hooks:
+            h.remove()
+    return gn_sites, attn_sites
 
 
 def build_reports() -> dict:
@@ -139,12 +192,12 @@ def attention_summary(res) -> str:
             f"{'ok' if res['ok'] else 'DISAGREES'}")
 
 
-def gn_inputs(shape, dtype, form, gen, device):
+def gn_inputs(shape, dtype, form, gen, device, eps=gn.EPS):
     """x, the cotangent g, the forward's statistics and an affine, seeded."""
     b, r, c = shape
     x = (1.5 * torch.randn(shape, generator=gen, device=device) + 0.3).to(dtype)
     g = torch.randn(shape, generator=gen, device=device).to(dtype)
-    mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
+    mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
     aff = (c,) if form == "per_channel" else (b, c)
     scale = 1 + 0.3 * torch.randn(aff, generator=gen, device=device)
     bias = 0.3 * torch.randn(aff, generator=gen, device=device)
@@ -164,6 +217,15 @@ def gn_backward_agreement(got, want):
     aff = max(float((a - b).abs().max() / b.abs().max()) for a, b in zip(got[1:], want[1:]))
     return {"dx_err": float(diff.max()), "affine_rel_err": aff,
             "ok": ok and aff <= 1e-5, "tolerance": tol + "; dscale, dbias 1e-5 max|ref|"}
+
+
+def wrapper_route(shape, dtype, sms) -> str:
+    """What the K2c wrapper does with a call: the design it picks, or the
+    number of channel chunks it cuts the call into."""
+    chunks = gn.bwd_channel_chunks(shape[2], gn.NUM_GROUPS, dtype.itemsize)
+    if chunks > 1:
+        return f"{chunks} channel chunks"
+    return gn.bwd_design(*shape, dtype.itemsize, sms)
 
 
 def gn_backward_check(x, g, mean_c, inv_c, scale, bias, design=None):
@@ -206,6 +268,22 @@ def main() -> int:
                           f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
                           f"{'ok' if res['ok'] else 'DISAGREES'}")
                     bad += [] if res["ok"] else [("K2c", design, shape, dt, form)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for part, (eps, sites) in LATENT_GN_SITES.items():
+        for shape in sites:
+            for dt in (torch.bfloat16, torch.float32):
+                designs = gn.bwd_designs(*shape, dt.itemsize, sms)
+                for form in AFFINE_FORMS:
+                    inputs = gn_inputs(shape, dt, form, gen, dev, eps)
+                    for design in (*designs, None):
+                        res = gn_backward_check(*inputs, design=design)
+                        name = design or f"wrapper ({wrapper_route(shape, dt, sms)})"
+                        print(f"K2c {part} {name} {shape} {dt} {form} "
+                              f"eps {eps:g}: max|dx| diff {res['dx_err']:.3e}, affine rel "
+                              f"{res['affine_rel_err']:.2e}, two calls "
+                              f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
+                              f"{'ok' if res['ok'] else 'DISAGREES'}")
+                        bad += [] if res["ok"] else [("K2c", part, design, shape, dt, form)]
     print(card(dev))
     print(f"{'all cases agree' if not bad else f'{len(bad)} cases disagree: {bad}'}")
     return 1 if bad else 0

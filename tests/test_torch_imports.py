@@ -28,6 +28,11 @@ def _port_sources():
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_sources()
     assert any(f.endswith("chip_smoke.py") for f in files) and len(files) > 10
+    rel = {os.path.relpath(f, ROOT) for f in files}
+    for module in ("models/ldm/autoencoder.py", "models/ldm/distributions.py",
+                   "models/ldm/ldm.py", "models/ldm/port.py", "models/ldm/__init__.py",
+                   "hmc/latent.py", "cli_latent.py"):  # the latent path is checked too
+        assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:
         with open(path) as f:
@@ -75,7 +80,10 @@ def test_entry_points_default_to_cuda():
                   "nshmc_tpu_torch.operators.build_operator",
                   "nshmc_tpu_torch.operators.linear.Inpainting.__init__",
                   "nshmc_tpu_torch.schedules.DiffusionSchedule.create",
-                  "nshmc_tpu_torch.models.port.load_adm_checkpoint"):
+                  "nshmc_tpu_torch.schedules.DiffusionSchedule.from_alphas_cumprod",
+                  "nshmc_tpu_torch.models.port.load_adm_checkpoint",
+                  "nshmc_tpu_torch.hmc.latent.init_latent_chains",
+                  "nshmc_tpu_torch.models.ldm.ldm.LatentDiffusion.create"):
         assert found.get(entry) == "cuda", (entry, found.get(entry))
     assert not [k for k, v in found.items() if str(v) == "cpu"], found
 
