@@ -2,7 +2,7 @@
 """Chip smoke run of nshmc_tpu_torch on one NVIDIA GPU (written for an H100).
 
     python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --trace OUT_DIR  # profile one flagship and one latent evaluation
+    python3 chip_smoke.py --trace OUT_DIR  # profile one flagship and two latent evaluations
 
 It builds the port's kernels from the sources in this checkout and then:
   1. holds the port's output against its plain-PyTorch path on the CPU on a
@@ -11,7 +11,8 @@ It builds the port's kernels from the sources in this checkout and then:
      port's engine — ADM U-Net at 256^2 (configs/ffhq.yaml, random weights
      from a seed), 3-step DDIM, 92% random inpainting, tau 1.0 / eps 0.05
      (L = 20), 8 chains as the batch, bf16 — for a few MH attempts, with every
-     kernel's launch count set to 0 just before and read just after. The
+     kernel's launch count set to 0 just before and read just after (K1's
+     f32 kernel: none). The
      anneal lasts one epoch and one sample is kept, and chain 0's accept
      uniform is 0, so it accepts every finite proposal: the run reaches the
      (0.1, 0.01) switch and the sample write at the flagship shape;
@@ -19,7 +20,8 @@ It builds the port's kernels from the sources in this checkout and then:
      it against its plain version (stated tolerances) and times it, its
      plain version and the closest single PyTorch call with CUDA events
      (K1's from CUDA graphs, device time without the host's launch cost):
-     K1 (bf16 on tensor cores, f32 scalar) also at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
+     K1 (bf16 on tensor cores; f32 on tensor cores in 3xTF32, its bound at
+     495 / 3 TFLOP/s) also at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
      and both affine forms, each of its two designs (one launch, two-pass),
      also at kernel_check.GN_SHAPES, each case called twice for
      bit-identical results (the checks of nshmc_tpu_torch.scripts.
@@ -38,21 +40,27 @@ It builds the port's kernels from the sources in this checkout and then:
   7. the latent path: (a) the tiny latent config's latent loss, z0 and
      z-gradient, f32, card vs CPU (the quantizer's differing-code share
      reported and bounded); (b) the latent flagship (configs/ffhq_latent.yaml
-     at full width, bf16, random weights, 92% random inpainting at 256^2,
-     3-step DDIM, 8 chains, 3 MH attempts at L = 20) through the port's latent
-     engine, with every kernel count set to 0 just before and read just after:
-     K1 at all 16 attention blocks of each eps-net forward, K2a/K2b at every
-     GN+SiLU site, K2c at the VQ decoder's 23 and at none of the stop-gradded
-     eps-net's, P1-P4 never; evals/s, peak memory and useful TFLOP/s; (c) K1
-     at the latent U-Net's three shapes, bf16 and f32, timed beside SDPA and
-     the bound; (d) K2a/K2b/K2c at the VQ decoder's sites, eps 1e-6 (K2a/K2b
-     also at the U-Net's), timed in bf16; (e) the CLI, --algo hmc_latent, on
-     configs/ffhq_latent.yaml in f32.
+     at full width, random weights, 92% random inpainting at 256^2, 3-step
+     DDIM, 8 chains, MH attempts at L = 20, y0's noise and z_T drawn on the
+     host as the CLI draws them) through the port's latent engine, in bf16
+     (3 attempts) and then in f32, the CLI's type (2 attempts, cuDNN
+     convolutions in TF32 as torch's defaults and so the CLI have them), each
+     with every kernel count set to 0 just before and read just after: K1 at
+     all 16 attention blocks of each eps-net forward (the bf16 run through
+     its bf16 kernel only, the f32 run through the 3xTF32 kernel only, each
+     kernel counted on its own), K2a/K2b at every GN+SiLU site, K2c at the VQ decoder's 23
+     and at none of the stop-gradded eps-net's, P1-P4 never; evals/s, peak
+     memory and useful TFLOP/s; (c) K1 at the latent U-Net's three shapes,
+     bf16 and f32, timed beside SDPA and the bound; (d) K2a/K2b/K2c at the
+     VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's), timed in
+     bf16 and f32, K2c beside the F.group_norm + F.silu backward; (e) the
+     CLI, --algo hmc_latent, on configs/ffhq_latent.yaml in f32.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
-{"ok": true, "device": {...}}. With --trace, one flagship and one latent
-flagship evaluation are profiled (OUT_DIR/trace_main_path.json,
-OUT_DIR/trace_latent_path.json) and nothing else runs.
+{"ok": true, "device": {...}}. With --trace, one flagship evaluation and
+one latent flagship evaluation in bf16 and in f32 are profiled
+(OUT_DIR/trace_main_path.json, trace_latent_path.json,
+trace_latent_f32_path.json) and nothing else runs.
 """
 import json
 import math
@@ -67,7 +75,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 CHAINS = 8
 ATTEMPTS = 3
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor / fp32 non-tensor
+# dense bf16 tensor cores / fp32 outside them / fp32-accurate products on the
+# tensor cores as three TF32 products each (3xTF32, K1's f32 kernel)
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 PROBE_ITERS = 30     # stream probe: calls per timed case
 # Edge shapes of the probe wrappers' range (C a multiple of 8 up to 2048): a
 # partial 64-channel block (P4), row layouts that leave threads idle (P1, P2),
@@ -229,7 +239,10 @@ def attention_case(torch, attn, kc, shape, dt, g, dev):
     gradient, and timed: the kernel, its plain version and SDPA from CUDA
     graphs of 20 calls (device ms, the host's launch cost left out: at these
     sizes it exceeds the kernels'), the kernel's eager call (host included)
-    and the bound. Fails the run on a disagreement; returns the record."""
+    and the bound. The f32 kernel's operations are bounded by the 3xTF32
+    rate (495 / 3 TFLOP/s), the fastest fp32-accurate products the card
+    has; bf16's by the bf16 tensor rate. Fails the run on a disagreement;
+    returns the record."""
     b, t, h, ch = shape
     q, k, v = kc.qkv_inputs(shape, dt, g, dev)
     res = kc.attention_check(q, k, v)
@@ -248,11 +261,12 @@ def attention_case(torch, attn, kc, shape, dt, g, dev):
         qt, kt, vt, scale=1.0 / math.sqrt(ch)))
     eager = time_ms(lambda: attn.attention_forward(q, k, v))
     nbytes = 4 * b * t * h * ch * q.element_size()
-    bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch, dname)
+    bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch,
+                       "tf32x3" if dt == torch.float32 else dname)
     print(f"K1 attention {shape} {dname}: {kc.attention_summary(res)}; grad rel "
           f"err {gerr:.2e} (tol {gtol}); device ms per call: kernel {ms:.4f}, plain "
           f"{plain:.4f}, sdpa {lib:.4f} (kernel/sdpa {ms / lib:.2f}), bound {bms:.4f} "
-          f"({by}); eager kernel call {eager:.4f} ms")
+          f"({by}, {100 * bms / ms:.0f}% of it); eager kernel call {eager:.4f} ms")
     check(res["ok"] and gerr <= gtol, f"attention {shape} {dname} disagrees")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
                 max_abs_err=res["max_abs_err"], tolerance=res["tolerance"], shape=list(shape),
@@ -375,6 +389,7 @@ def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantiz
     import types
 
     import yaml
+    from nshmc_tpu_torch.cli import host_randn, image_generators
     from nshmc_tpu_torch.cli_latent import latent_configs
     from nshmc_tpu_torch.hmc import latent
     from nshmc_tpu_torch.models.ldm import LatentDiffusion
@@ -393,15 +408,15 @@ def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantiz
     d, c = cfg["data"]["image_size"], cfg["data"]["channels"]
     op = build_operator("inpaint_random", c, d, np.random.default_rng(seed), device=dev)
     x_orig = 2 * torch.from_numpy(synthetic_image(np, d, seed)).to(dev)[None] - 1
-    y0 = op.H_img(x_orig)  # its noise from the CPU generator: the same y0 on every device
-    y0 = y0 + 0.1 * torch.randn(y0.shape, generator=torch.Generator().manual_seed(seed)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    host, gen = image_generators(seed, dev)  # the CLI's draws: y0's noise from the host
+    y0 = op.H_img(x_orig)
+    y0 = y0 + 0.1 * host_randn(y0.shape, host, dev)
     decode_z = ddim.make_decoder(ldm.model_fn(), ldm.schedule, DDIMSequence.create(m["timesteps"], 3))
     decode_x = lambda z0: ldm.decode_first_stage(z0, force_not_quantize)
     loss_fn = latent.make_latent_loss_fn(decode_z, decode_x, op, y0[0])
     z_shape = (ucfg.image_size, ucfg.image_size, ucfg.in_channels)
     return types.SimpleNamespace(ldm=ldm, loss_fn=loss_fn, decode_z=decode_z, gen=gen,
-                                 z_shape=z_shape)
+                                 z_shape=z_shape, z_t=host_randn((CHAINS, *z_shape), host, dev))
 
 
 def phase_latent_small(torch, np, engine):
@@ -456,25 +471,40 @@ def latent_finite_or_fail(torch, p, z):
          f"loss {loss.tolist()}, gradient finite {bool(torch.isfinite(grad).all())}")
 
 
-def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None):
-    """(b) The latent flagship: configs/ffhq_latent.yaml at full width, bf16,
-    random weights from seed 0, 92% random inpainting at 256^2, 3-step DDIM,
-    8 chains, 3 MH attempts at tau 1.0 / eps 0.05 (L = 20) through the
-    port's latent engine, every kernel count set to 0 just before and read
-    just after. The anneal lasts one attempt and one sample is kept, and
-    chain 0's accept uniform is 0: it accepts every finite proposal, so the
-    run reaches the geometric sigma update, the post-anneal pin of (tau,
-    eps) and the sample ring. With `trace_dir`, profiles one evaluation
-    instead and returns its device busy ms."""
+def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, dtype=None):
+    """(b) The latent flagship: configs/ffhq_latent.yaml at full width, in
+    `dtype` (bf16; f32 is the latent CLI's type), random weights from seed 0,
+    92% random inpainting at 256^2, 3-step DDIM, 8 chains, MH attempts at
+    tau 1.0 / eps 0.05 (L = 20) through the port's latent engine, y0's noise
+    and z_T drawn as the CLI draws them, every kernel count set to 0 just
+    before and read just after. In bf16, 3 attempts: the anneal lasts one
+    and one sample is kept, and chain 0's accept uniform is 0, so it accepts
+    every finite proposal and the run reaches the geometric sigma update,
+    the post-anneal pin of (tau, eps) and the sample ring. In f32, 2 anneal
+    attempts, under torch's default TF32 settings (cuDNN convolutions in
+    TF32, matmuls not), as the CLI runs. With `trace_dir`, profiles one
+    evaluation instead and returns its device busy ms."""
     from nshmc_tpu_torch.hmc import latent
 
     dev = torch.device("cuda")
+    dtype = dtype or torch.bfloat16
+    f32 = dtype == torch.float32
+    dname = str(dtype).split(".")[1]
     t0 = time.time()
-    p = latent_problem(torch, np, LATENT_CFG, torch.bfloat16, dev)
-    hcfg = latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
-                                  sampling=1, keep_samples=1)
-    state = latent.init_latent_chains(hcfg, CHAINS, p.z_shape, dev, p.gen)
-    print(f"latent flagship built in {time.time() - t0:.1f} s")
+    p = latent_problem(torch, np, LATENT_CFG, dtype, dev)
+    from nshmc_tpu_torch.models.unet import AttentionBlock
+
+    # the attention inputs come out of each block's qkv projection in its
+    # weight's dtype, which picks K1's kernel
+    check(all(mod.qkv.weight.dtype == dtype for mod in p.ldm.unet.modules()
+              if isinstance(mod, AttentionBlock)),
+          f"the latent U-Net's attention blocks are not all {dname}")
+    hcfg = (latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05,
+                                   epochs=2, sampling=0, keep_samples=1) if f32 else
+            latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
+                                   sampling=1, keep_samples=1))
+    state = latent.init_latent_chains(hcfg, CHAINS, p.z_shape, dev, z=p.z_t)
+    print(f"latent flagship ({dname}) built in {time.time() - t0:.1f} s")
     with torch.no_grad():  # the shapes each kernel sees, by forward hooks
         unet_gn, unet_attn = kc.count_sites(p.ldm.unet, lambda: p.ldm.unet(
             state.z, torch.full((CHAINS,), 500.0, device=dev)))
@@ -486,13 +516,33 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None):
     n_unet_gn, n_attn, n_dec_gn = (sum(v.values()) for v in (unet_gn, unet_attn, dec_gn))
     print(f"latent U-Net forward: {n_unet_gn} GN+SiLU sites, {n_attn} attention blocks "
           f"{dict(unet_attn)}; VQ decoder: {n_dec_gn} GN+SiLU sites at eps 1e-6 {dict(dec_gn)}")
-    loss0 = latent_finite_or_fail(torch, p, state.z)
-    print(f"latent energy at the start state finite: data loss {[round(v, 1) for v in loss0.tolist()]}")
-    if trace_dir is not None:
-        return trace_eval(torch, engine, p.loss_fn, state.z, trace_dir, "latent_path",
-                          "latent flagship")
+    tf32_before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = f32  # f32: torch's default, under which the CLI runs
+    try:
+        loss0 = latent_finite_or_fail(torch, p, state.z)
+        print(f"latent energy ({dname}) at the start state finite: data loss "
+              f"{[round(v, 1) for v in loss0.tolist()]}")
+        if trace_dir is not None:
+            return trace_eval(torch, engine, p.loss_fn, state.z, trace_dir,
+                              "latent_path" if not f32 else "latent_f32_path",
+                              f"latent flagship {dname}")
+        return latent_run(torch, kc, gn, p, hcfg, state, counters, dtype,
+                          (n_unet_gn, n_attn, n_dec_gn))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32_before
 
+
+def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
+    """The latent flagship's HMC run of `phase_latent_flagship` in `dtype`,
+    with `sites` (U-Net GN+SiLU sites, attention blocks, decoder GN+SiLU
+    sites a forward): its launch counts and chain checks; returns the
+    path's record."""
+    from nshmc_tpu_torch.hmc import latent
+
+    dev, dname = torch.device("cuda"), str(dtype).split(".")[1]
+    n_unet_gn, n_attn, n_dec_gn = sites
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    itemsize = torch.empty((), dtype=dtype).element_size()
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -522,45 +572,46 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None):
     n_evals = evals * hcfg.total_attempts
     steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
     evals_per_s = evals * len(steps[1:]) / sum(steps[1:])
-    print(f"latent path: {len(steps)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
-          f"bf16; attempt times {[round(v, 3) for v in steps]} s; {evals_per_s:.3f} energy+grad "
-          f"evals/s (attempts 2+), useful {LATENT_USEFUL_TFLOP * evals_per_s:.1f} TFLOP/s; peak "
-          f"memory {peak_gb:.2f} GB")
-    print(f"latent path kernel launches: {launches}; GN+SiLU backward calls {bwd_calls} "
-          f"(per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
+    print(f"latent path ({dname}): {len(steps)} MH attempts x {evals} energy+grad evals, "
+          f"{CHAINS} chains; attempt times {[round(v, 3) for v in steps]} s; {evals_per_s:.3f} "
+          f"energy+grad evals/s (attempts 2+), useful {LATENT_USEFUL_TFLOP * evals_per_s:.1f} "
+          f"TFLOP/s; peak memory {peak_gb:.2f} GB")
+    print(f"latent path ({dname}) kernel launches: {launches}; GN+SiLU backward calls "
+          f"{bwd_calls} (per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
     # K1 at every attention block of the 3 eps-net forwards; K2a/K2b at every
     # GN+SiLU site of those and of the decoder; K2c at the decoder's only (the
     # eps-net is stop-gradded), each by the design bwd_design picks
     want_bwd = {"gn_backward": 0, "gn_backward_twopass": 0}
     for shape, n in kc.VQ_DECODER_GN_SITES.items():
-        want_bwd[BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]] += n * n_evals
-    want = {"attention": 3 * n_attn * n_evals, "gn_stats": (3 * n_unet_gn + n_dec_gn) * n_evals,
+        want_bwd[BWD_KERNELS[gn.bwd_design(*shape, itemsize, sms)]] += n * n_evals
+    k1 = "attention_f32" if dtype == torch.float32 else "attention"
+    want = {k1: 3 * n_attn * n_evals, "gn_stats": (3 * n_unet_gn + n_dec_gn) * n_evals,
             "gn_apply": (3 * n_unet_gn + n_dec_gn) * n_evals, **want_bwd}
     check(bwd_calls == n_dec_gn * n_evals,
           f"{bwd_calls} GN+SiLU backward calls, {n_dec_gn * n_evals} expected: one per VQ "
           f"decoder site, none in the stop-gradded eps-net")
     for k, v in launches.items():
-        check(v == want.get(k, 0), f"latent path: kernel {k} launched {v} times, "
+        check(v == want.get(k, 0), f"latent path ({dname}): kernel {k} launched {v} times, "
                                    f"{want.get(k, 0)} expected")
     check(bool(torch.isfinite(out.z).all()), "latent chain state is not finite")
-    check(int(out.accepted[0]) == hcfg.total_attempts and int(out.n_kept[0]) == 2,
+    check(int(out.accepted[0]) == hcfg.total_attempts,
           f"chain 0 did not accept every proposal: accepted {out.accepted.tolist()}")
-    check(abs(float(out.tau[0]) - hcfg.post_tau) < 1e-6
-          and abs(float(out.epsilon[0]) - hcfg.post_epsilon) < 1e-6
-          and abs(float(out.sigma_y[0]) - hcfg.sigma_0) < 1e-6,
-          f"chain 0 was not pinned after the anneal: {out.tau[0]}, {out.epsilon[0]}, "
-          f"{out.sigma_y[0]}")
-    check(torch.equal(out.samples[0, -1], ring["z0"]),
-          "chain 0's ring does not hold the z0 of its previous accepted proposal")
-    print(f"latent path state: accepted {out.accepted.tolist()}, n_kept {out.n_kept.tolist()}, "
-          f"tau {[round(v, 4) for v in out.tau.tolist()]}, sigma_y "
+    if hcfg.sampling:
+        check(int(out.n_kept[0]) == 2, f"chain 0 kept {out.n_kept.tolist()} samples")
+        check(abs(float(out.tau[0]) - hcfg.post_tau) < 1e-6
+              and abs(float(out.epsilon[0]) - hcfg.post_epsilon) < 1e-6
+              and abs(float(out.sigma_y[0]) - hcfg.sigma_0) < 1e-6,
+              f"chain 0 was not pinned after the anneal: {out.tau[0]}, {out.epsilon[0]}, "
+              f"{out.sigma_y[0]}")
+        check(torch.equal(out.samples[0, -1], ring["z0"]),
+              "chain 0's ring does not hold the z0 of its previous accepted proposal")
+    print(f"latent path ({dname}) state: accepted {out.accepted.tolist()}, n_kept "
+          f"{out.n_kept.tolist()}, tau {[round(v, 4) for v in out.tau.tolist()]}, sigma_y "
           f"{[round(v, 4) for v in out.sigma_y.tolist()]}, last loss "
-          f"{[round(v, 1) for v in out.last_loss.tolist()]} (chain 0: anneal accept -> pin to "
-          f"({hcfg.post_tau}, {hcfg.post_epsilon}), sigma_y {hcfg.sigma_0} -> ring holds the "
-          f"previous accepted z0)")
+          f"{[round(v, 1) for v in out.last_loss.tolist()]}")
     return dict(launches=launches, evals_per_s=evals_per_s, peak_gb=peak_gb,
                 useful_tflops=LATENT_USEFUL_TFLOP * evals_per_s, n_leapfrog=hcfg.n_leapfrog,
-                attempts=hcfg.total_attempts, attempt_s=steps)
+                attempts=hcfg.total_attempts, attempt_s=steps, dtype=dname)
 
 
 def phase_latent_kernels(torch, attn, gn, kc):
@@ -568,8 +619,8 @@ def phase_latent_kernels(torch, attn, gn, kc):
     and (d) K2a, K2b and K2c at the VQ decoder's GN+SiLU sites with eps
     1e-6 (both dtypes, both affine forms; K2c each design that can take the
     call and the wrapper, two calls bit-identical), K2a and K2b also at the
-    latent U-Net's sites, each against its plain version; the bf16 cases
-    timed. Returns {kernel: [records]}."""
+    latent U-Net's sites, each against its plain version; K1 and the VQ
+    decoder's cases timed in both dtypes. Returns {kernel: [records]}."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -607,12 +658,12 @@ def phase_latent_kernels(torch, attn, gn, kc):
                         res = kc.gn_backward_check(*inputs, design=design)
                         check(res["ok"], f"K2c {design or 'wrapper'} {shape} {dname} {form} "
                                          f"eps {eps:g}: {res}")
-                if part == "vq_decoder" and dt == torch.bfloat16:
+                if part == "vq_decoder":
                     out["gn_stats"].append(gn_forward_times(torch, gn, x, "stats", eps))
                     out["gn_apply"].append(gn_forward_times(torch, gn, x, "apply", eps))
-                    design = gn.bwd_design(*shape, 2, sms)
+                    design = gn.bwd_design(*shape, dt.itemsize, sms)
                     out[BWD_KERNELS[design]].append(gn_backward_times(
-                        torch, gn, kc, shape, design, eps, g, dev))
+                        torch, gn, kc, shape, dt, design, eps, g, dev))
     print(f"K2 at the latent sites agree (eps 1e-6 at the VQ decoder's, 1e-5 at the U-Net's): "
           f"apply worst abs err {worst}; K2c at every VQ decoder site, each design that can "
           f"take it and the wrapper, two calls bit-identical")
@@ -620,39 +671,56 @@ def phase_latent_kernels(torch, attn, gn, kc):
 
 
 def gn_forward_times(torch, gn, x, which, eps):
-    """K2a ("stats") or K2b ("apply") at x (B, R, C) bf16: kernel and plain
-    ms (CUDA events) and the bound."""
+    """K2a ("stats") or K2b ("apply") at x (B, R, C), bf16 or f32: kernel and
+    plain device ms from CUDA graphs (at the smaller sites the host's launch
+    of a Triton kernel outlasts the kernel), the kernel's eager call (CUDA
+    events, host included) and the bound."""
     b, r, cc = x.shape
-    n = b * r * cc
+    n, es = b * r * cc, x.element_size()
+    dname = str(x.dtype).split(".")[1]
     if which == "stats":
-        ms = time_ms(lambda: gn.channel_stats(x))
-        plain = time_ms(lambda: gn.channel_stats_plain(x))
-        bms, by = bound_ms(n * 2 + b * 2 * cc * 4, 3 * n, "float32")
+        run, plain_run = (lambda: gn.channel_stats(x)), (lambda: gn.channel_stats_plain(x))
+        bms, by = bound_ms(n * es + b * 2 * cc * 4, 3 * n, "float32")
     else:
         mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
         sc, bi = torch.ones((b, cc), device=x.device), torch.zeros((b, cc), device=x.device)
-        ms = time_ms(lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi))
-        plain = time_ms(lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi))
-        bms, by = bound_ms(2 * n * 2 + 4 * b * cc * 4, 8 * n, "float32")
-    print(f"K2 {which} {tuple(x.shape)} bf16 (VQ decoder site): kernel {ms:.4f} ms, plain "
-          f"{plain:.4f}, bound {bms:.4f} ({by})")
-    return dict(shape=list(x.shape), dtype="bfloat16", ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by)
+        run = lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi)
+        plain_run = lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
+        bms, by = bound_ms(2 * n * es + 4 * b * cc * 4, 8 * n, "float32")
+    ms, plain, eager = time_ms_graph(run), time_ms_graph(plain_run), time_ms(run)
+    print(f"K2 {which} {tuple(x.shape)} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA "
+          f"graphs; eager {eager:.4f}), plain {plain:.4f}, bound {bms:.4f} ({by}), "
+          f"{100 * bms / ms:.0f}% of bound")
+    return dict(shape=list(x.shape), dtype=dname, ms=ms, eager_ms=eager, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def gn_backward_times(torch, gn, kc, shape, design, eps, g, dev):
-    """K2c's picked design at a VQ decoder site in bf16: device ms from CUDA
-    graphs, the plain version's ms (CUDA events) and the three-pass bound."""
-    inputs = kc.gn_inputs(shape, torch.bfloat16, "per_batch_channel", g, dev, eps)
+def gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev):
+    """K2c's picked design at a VQ decoder site in dt: device ms from CUDA
+    graphs, the plain version's ms (CUDA events, as in phase 3), the
+    three-pass bound, and
+    the yardstick of phase 3 (the backward of F.group_norm + F.silu with a
+    (C,) affine, not the same function)."""
+    inputs = kc.gn_inputs(shape, dt, "per_batch_channel", g, dev, eps)
     ms = time_ms_graph(lambda: kc.GN_BWD_DESIGNS[design](*inputs))
     plain = time_ms(lambda: gn.groupnorm_silu_backward_plain(*inputs))
     b, r, cc = shape
-    n = b * r * cc
-    bms, by = bound_ms(3 * n * 2 + 6 * b * cc * 4, GN_BWD_OPS * n, "float32")
-    print(f"K2c {design} {shape} bf16 (VQ decoder site): kernel {ms:.4f} ms (CUDA graphs), "
-          f"plain {plain:.4f}, bound {bms:.4f} ({by})")
-    return dict(shape=list(shape), dtype="bfloat16", ms=ms, plain_ms=plain, bound_ms=bms,
-                bound_by=by)
+    x, gk, _, _, sc, bi = inputs
+    side = math.isqrt(r)
+    x4 = x.reshape(b, side, side, cc).permute(0, 3, 1, 2).detach().requires_grad_(True)
+    y4 = torch.nn.functional.silu(torch.nn.functional.group_norm(
+        x4, 32, sc[0].to(dt), bi[0].to(dt), eps))
+    g4 = gk.reshape(b, side, side, cc).permute(0, 3, 1, 2)
+    lib = time_ms(lambda: torch.autograd.grad(y4, x4, g4, retain_graph=True))
+    del x4, y4
+    n, es = b * r * cc, dt.itemsize
+    dname = str(dt).split(".")[1]
+    bms, by = bound_ms(3 * n * es + 6 * b * cc * 4, GN_BWD_OPS * n, "float32")
+    print(f"K2c {design} {shape} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA graphs), "
+          f"plain {plain:.4f}, bound {bms:.4f} ({by}), {100 * bms / ms:.0f}% of bound; "
+          f"F.group_norm+F.silu backward {lib:.4f} ms")
+    return dict(shape=list(shape), dtype=dname, ms=ms, plain_ms=plain, bound_ms=bms,
+                bound_by=by, library_ms=lib)
 
 
 def phase_latent_cli(np):
@@ -703,6 +771,7 @@ def main():
     sys.path.insert(0, ROOT)
     try:
         import yaml
+        from nshmc_tpu_torch.cli import host_randn, image_generators
         from nshmc_tpu_torch.hmc import engine
         from nshmc_tpu_torch.models import unet
         from nshmc_tpu_torch.operators import build_operator
@@ -746,15 +815,16 @@ def main():
     seq = sched_mod.DDIMSequence.create(1000, 3)
     decode = ddim.make_decoder(model, sched, seq)
     op = build_operator("inpaint_random", c, d, np.random.default_rng(SEED), device=dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    host, gen = image_generators(SEED, dev)  # the CLI's draws
     x_orig = 2 * torch.from_numpy(synthetic_image(np, d, SEED)).to(dev)[None] - 1
     sigma_0 = 2 * 0.05
     y0 = op.H_img(x_orig)
-    y0 = y0 + sigma_0 * torch.randn(y0.shape, generator=gen, device=dev)
+    y0 = y0 + sigma_0 * host_randn(y0.shape, host, dev)
     hcfg = engine.HMCConfig(sigma_0=sigma_0, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
                             max_attempts=ATTEMPTS)
     loss_fn = engine.make_pixel_loss_fn(decode, op, y0[0])
-    state = engine.init_chains(hcfg, CHAINS, (d, d, c), dev, gen)
+    state = engine.init_chains(hcfg, CHAINS, (d, d, c), dev,
+                               x=host_randn((CHAINS, d, d, c), host, dev))
 
     # one no-grad forward at the main path's batch records the shapes each
     # kernel sees (GroupNorm+SiLU sites and attention blocks)
@@ -772,7 +842,9 @@ def main():
 
     if trace_dir is not None:
         trace_eval(torch, engine, loss_fn, state.x, trace_dir)
-        phase_latent_flagship(torch, np, engine, kc, gn, None, trace_dir)
+        del model, state, loss_fn, decode
+        for dt in (torch.bfloat16, torch.float32):
+            phase_latent_flagship(torch, np, engine, kc, gn, None, trace_dir, dt)
         return
 
     # the main path's kernels, and the probe kernels, which it must not run
@@ -781,7 +853,8 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     on_path = set(MAIN_PATH_KERNELS) | {BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]
                                         for shape in kc.FLAGSHIP_GN_SITES}
-    counters = {"attention": attn.attention_forward, "gn_stats": gn.channel_stats,
+    counters = {"attention": attn.KERNEL_LAUNCHES[torch.bfloat16],
+                "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.channel_stats,
                 "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
                 "gn_backward_twopass": gn.launch_twopass,
                 **{f.__name__: f for f in sp.KERNELS}}
@@ -859,11 +932,14 @@ def main():
     def rec(name, **kw):
         records.setdefault(name, {}).update(kw)
 
+    attn_f32 = []  # K1's f32 kernel at the flagship's shapes (its pixel path: --no-bf16)
     for shape in sorted(attn_sites):
         for dt in (torch.bfloat16, torch.float32):
             r_ = attention_case(torch, attn, kc, shape, dt, g, dev)
             if (*shape, dt) == (CHAINS, 256, 8, 64, torch.bfloat16):
                 rec("attention", **r_)
+            if dt == torch.float32:
+                attn_f32.append(r_)
     edge = {}
     for shape in ATTN_EDGE_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
@@ -1064,14 +1140,19 @@ def main():
     # ---- 7. the latent path ----------------------------------------------------------------
     t0 = time.time()
     code_share = phase_latent_small(torch, np, engine)
-    latent_run = phase_latent_flagship(torch, np, engine, kc, gn, counters)
+    latent_bf16 = phase_latent_flagship(torch, np, engine, kc, gn, counters)
+    latent_f32 = phase_latent_flagship(torch, np, engine, kc, gn, counters, dtype=torch.float32)
     latent_kernels = phase_latent_kernels(torch, attn, gn, kc)
     phase_latent_cli(np)
     print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
 
+    # K1's f32 kernel: its record at the f32 latent path's hot shape
+    for r_ in latent_kernels["attention"]:
+        if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
+            rec("attention_f32", **r_)
     probe_src = "nshmc_tpu_torch/csrc/stream_probe.cu"
-    sources = {"attention": ("cuda", "nshmc_tpu_torch/csrc/attention.cu",
-                             "nshmc_tpu/ops/attention.py:44"),
+    attn_src = ("cuda", "nshmc_tpu_torch/csrc/attention.cu", "nshmc_tpu/ops/attention.py:44")
+    sources = {"attention": attn_src, "attention_f32": attn_src,
                "gn_stats": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
                             "nshmc_tpu/ops/groupnorm.py:55"),
                "gn_apply": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
@@ -1084,20 +1165,30 @@ def main():
                "probe_apply": ("cuda", probe_src, "scripts/pallas_stream_probe.py:73"),
                "probe_touch": ("cuda", probe_src, "scripts/pallas_stream_probe.py:183"),
                "probe_mma_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:198")}
+    # each HMC run's launch counts by kernel, each kernel counted where it launches
+    paths = {"flagship bf16": launches, "latent bf16": latent_bf16["launches"],
+             "latent f32": latent_f32["launches"]}
+
     kernels = []
     for name, (route, src, replaces) in sources.items():
         r_ = records[name]
         on_main = name in MAIN_PATH_KERNELS or name in BWD_KERNELS.values()
         # `launches`: the count of the kernel's own path (the flagship HMC run,
-        # or the probe's timed cases for P1-P4), each set to 0 just before it;
-        # `main_path_launches`: every kernel's count over the flagship HMC run;
-        # `latent_path_launches`: over the latent flagship's HMC run
+        # the f32 latent HMC run for K1's f32 kernel, or the probe's timed
+        # cases for P1-P4), each set to 0 just before it; `path_launches`:
+        # its count over each HMC run of this script
+        own = ("flagship bf16" if on_main else "latent f32" if name == "attention_f32"
+               else None)
+        # K1's records of both dtypes sit under "attention"
+        key, kdt = (("attention", "float32" if name == "attention_f32" else "bfloat16")
+                    if name.startswith("attention") else (name, None))
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
-                        "launches": launches[name] if on_main else r_["launches"],
-                        "path": "flagship HMC" if on_main else "stream probe",
-                        "main_path_launches": launches[name],
-                        "latent_path_launches": latent_run["launches"][name],
-                        "latent_shapes": latent_kernels.get(name, []),
+                        "launches": paths[own][name] if own else r_["launches"],
+                        "path": own or "stream probe",
+                        "path_launches": {pth: counts[name] for pth, counts in paths.items()},
+                        "latent_shapes": [x for x in latent_kernels.get(key, [])
+                                          if kdt in (None, x["dtype"])],
+                        **({"flagship_shapes": attn_f32} if name == "attention_f32" else {}),
                         "max_abs_err": r_["max_abs_err"],
                         "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"], "library_ms": r_["library_ms"],
@@ -1105,15 +1196,18 @@ def main():
                         "tolerance": r_["tolerance"],
                         **{k: r_[k] for k in ("five_pass_floor_ms", "timing",
                                               "picked_at_this_shape") if k in r_}})
+
+    def path_record(run):
+        return {"energy_grad_evals_per_s": run["evals_per_s"], "peak_memory_gb": run["peak_gb"],
+                "useful_tflop_per_s": run["useful_tflops"], "chains": CHAINS,
+                "attempts": run["attempts"], "n_leapfrog": run["n_leapfrog"],
+                "attempt_s": run["attempt_s"], "dtype": run["dtype"]}
+
     print(json.dumps({"kernels": kernels, "main_path": {
         "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
-        "latent_path": {
-            "energy_grad_evals_per_s": latent_run["evals_per_s"],
-            "peak_memory_gb": latent_run["peak_gb"],
-            "useful_tflop_per_s": latent_run["useful_tflops"], "chains": CHAINS,
-            "attempts": latent_run["attempts"], "n_leapfrog": latent_run["n_leapfrog"],
-            "attempt_s": latent_run["attempt_s"], "quantizer_codes_differing": code_share}}))
+        "latent_path": {**path_record(latent_bf16), "quantizer_codes_differing": code_share},
+        "latent_path_f32": path_record(latent_f32)}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -111,21 +111,38 @@ def load_config(path):
         return yaml.safe_load(f)
 
 
-def observe(opt, operator, path, idx, d, sigma_0, device):
-    """Load image `idx`, synthesize y0 = H(x) + sigma_0 * noise from the
-    image's generator (seed + idx) and save y0_{idx}.png and orig_{idx}.png.
-    Returns (x01 (d, d, 3) numpy, y0 (1, d_y), the generator)."""
+def host_randn(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """N(0, I) of `shape` drawn on the host from the CPU `generator` and then
+    moved to `device`: the same values whatever the device, as the JAX
+    package's `PRNGKey(seed + idx)` draws do not depend on the backend."""
+    return torch.randn(tuple(shape), generator=generator).to(device)
+
+
+def image_generators(seed: int, device) -> tuple:
+    """(host, engine) generators of one image, both seeded `seed` (the
+    caller's seed + idx). y0's noise and the initial chain state come from
+    `host`, a CPU generator; `engine` draws the per-attempt momenta and
+    accept uniforms on `device` (on the CPU it is `host` itself, so that
+    its draws continue the stream instead of repeating y0's noise)."""
+    host = torch.Generator().manual_seed(seed)
+    device = torch.device(device)
+    return host, host if device.type == "cpu" else torch.Generator(device=device).manual_seed(seed)
+
+
+def observe(opt, operator, path, idx, d, sigma_0, host, device):
+    """Load image `idx`, synthesize y0 = H(x) + sigma_0 * noise with the
+    noise from the image's host generator and save y0_{idx}.png and
+    orig_{idx}.png. Returns (x01 (d, d, 3) numpy, y0 (1, d_y))."""
     from .utils import images as im
 
     x01 = im.load_image(path, d)
     x_orig = im.data_transform(torch.from_numpy(x01).to(device))[None]
-    gen = torch.Generator(device=device).manual_seed(opt.seed + idx)
     y0 = operator.H_img(x_orig)
-    y0 = y0 + sigma_0 * torch.randn(y0.shape, generator=gen, device=device)
+    y0 = y0 + sigma_0 * host_randn(y0.shape, host, device)
     im.save_image(im.inverse_data_transform(operator.H_pinv_img(y0)[0]),
                   os.path.join(opt.image_folder, f"y0_{idx}.png"))
     im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
-    return x01, y0, gen
+    return x01, y0
 
 
 def record(opt, idx, path, samples01, x01, dt, stats):
@@ -200,7 +217,8 @@ def run_pixel(opt):
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
     for idx, path in enumerate(files):
-        x01, y0, gen = observe(opt, operator, path, idx, d, sigma_0, device)
+        host, gen = image_generators(opt.seed + idx, device)
+        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
         orig01 = torch.from_numpy(x01)[None]
 
         def report(states, rnd):
@@ -212,7 +230,8 @@ def run_pixel(opt):
 
         t0 = time.time()
         loss_fn = make_pixel_loss_fn(decode, operator, y0[0])
-        states = init_chains(hmc_cfg, opt.chains, (d, d, c), device, gen)
+        states = init_chains(hmc_cfg, opt.chains, (d, d, c), device,
+                             x=host_randn((opt.chains, d, d, c), host, device))
         out = run_hmc(loss_fn, hmc_cfg, states, gen,
                       callback=report if opt.verbose else None)
         samples01 = im.inverse_data_transform(out.samples.reshape(-1, d, d, c)).cpu()

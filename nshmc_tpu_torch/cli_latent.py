@@ -70,7 +70,8 @@ def build_latent_model(cfg, opt, device):
 
 
 def run_latent(opt):
-    from .cli import _check_ported, _device, load_config, observe, record
+    from .cli import (_check_ported, _device, host_randn, image_generators, load_config,
+                      observe, record)
     from .hmc.latent import (LatentHMCConfig, init_latent_chains, make_latent_loss_fn,
                              run_latent_hmc)
     from .operators import build_operator
@@ -101,7 +102,8 @@ def run_latent(opt):
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
     for idx, path in enumerate(files):
-        x01, y0, gen = observe(opt, operator, path, idx, d, sigma_0, device)
+        host, gen = image_generators(opt.seed + idx, device)
+        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
 
         def report(states, rnd):
             # the Hamiltonian's parts and the acceptance ratio of chain 0
@@ -115,7 +117,8 @@ def run_latent(opt):
 
         t0 = time.time()
         loss_fn = make_latent_loss_fn(decode_z, ldm.decode_first_stage, operator, y0[0])
-        states = init_latent_chains(hmc_cfg, opt.chains, z_shape, device, gen)
+        states = init_latent_chains(hmc_cfg, opt.chains, z_shape, device,
+                                    z=host_randn((opt.chains, *z_shape), host, device))
         out = run_latent_hmc(loss_fn, hmc_cfg, states, gen,
                              callback=report if opt.verbose else None)
         z_samples = extract_kept_samples(out.samples.cpu().numpy(), out.n_kept.cpu().numpy())

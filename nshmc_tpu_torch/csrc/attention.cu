@@ -10,9 +10,10 @@
 // with every rounding placed where the Pallas kernel places it: q and k are
 // scaled in their own type, logits and the softmax are fp32, the normalized
 // weights are cast to v's type before the PV product, which accumulates in
-// fp32. Because the weights must be normalized before their cast, the key
-// loop runs twice: pass 1 keeps an online row max and denominator, pass 2
-// recomputes the logits, forms the cast weights and accumulates w.V.
+// fp32. In bf16, because the weights must be normalized before their cast,
+// the key loop runs twice: pass 1 keeps an online row max and denominator,
+// pass 2 recomputes the logits, forms the cast weights and accumulates w.V.
+// In f32 the cast is the identity and one pass suffices.
 //
 // Two kernels, chosen by dtype in the launcher (not by shape, and neither is
 // a fallback of the other):
@@ -52,167 +53,52 @@
 //   code, ~27 instructions per logit, 16 of them for the two expf, and that
 //   is what bounds it.
 //
-// float32, correctness phases only: `attn_fwd_kernel`, scalar fp32 FMAs.
-//   Tensor cores would need TF32 for f32 inputs, which breaks the 1e-4 f32
-//   tolerance. One block of 256 threads per (batch*head, 64-query tile);
-//   4 threads share a query row, each holding the whole scaled q row in
-//   registers; K and V stream through shared memory in 32-key tiles. It is
-//   bound by its own FMA rate, far from either bound.
+// float32, the latent CLI's type: `attn_fwd_f32_kernel`, on tensor cores in
+//   3xTF32. What bounds it: at the latent U-Net's (8, 1024, 14, 32) the
+//   function needs 4 B H T^2 ch = 15.03 GFLOP. Products accurate to fp32 run
+//   on the tensor cores as three TF32 products each (a_hi b_hi + a_hi b_lo +
+//   a_lo b_hi), at 495 / 3 = 165 TFLOP/s: 0.0911 ms, against 58.7 MB of bytes,
+//   0.0175 ms at 3.35 TB/s, so operations. One TF32 product keeps 10 mantissa
+//   bits (a unit-scale logit errs by ~1e-3, which fails the 1e-4 f32 check);
+//   the hi/lo split keeps about fp32 accuracy.
+//   Design: in f32 the weights' cast to v's type is the identity, so the two
+//   passes of the bf16 kernel become one with an online softmax: per key
+//   tile a running row max m and denominator l, the accumulator rescaled by
+//   exp(m_old - m_new), one division at the end (the same function; only
+//   the fp32 rounding order differs). mma.sync m16n8k8 tf32 for S = Qs.Ks^T
+//   and for O += P.V, three MMAs each. The warp's scaled Q is split into hi
+//   and lo once and kept in registers; each K and V tile is split once, by
+//   the threads that copied it (hi in place, lo beside it); P is split in
+//   registers after the exp. hi is rounded to nearest by two integer
+//   operations on the bits (the cvt.rna.tf32 instruction gives the same
+//   value, slower), lo is truncated by one (its error, at most 2^-21 of x,
+//   keeps the products at about fp32 accuracy). The m16n8k8 C fragment of S
+//   gives a lane (g = lane / 4, t = lane % 4) keys 2t and 2t + 1, where the
+//   A fragment of P.V wants k-slots t and t + 4: instead of a shuffle, k-slot
+//   t carries key 2t and slot t + 4 key 2t + 1, so a0..a3 = c0, c2, c1, c3,
+//   and V's B fragment is read from keys 2t and 2t + 1 (a sum over keys does
+//   not see their order). Rows are padded to ch + 4 floats, so the K reads
+//   (key g, channel t) and the V reads (keys 2t, 2t + 1, channel g) fall in
+//   32 distinct banks. K and V stream by 16-byte cp.async through a
+//   three-stage ring of key tiles (64 keys; 32 at ch = 64, for shared
+//   memory): while tile i is multiplied, each thread has split its chunks of
+//   tile i + 1 just before, with no barrier between, and tile i + 2 lands;
+//   one barrier a tile, after the products, guards both stages' next use,
+//   and the copy three tiles ahead is issued behind it. Rows past T are
+//   zero-filled and their logits masked to -inf. The exp is ex2.approx of
+//   (s - m) log2 e, one SFU instruction (f32 has no bf16 rounding midpoint to
+//   keep, and the 1e-4 check holds). Blocks are 4 warps; from T = 256 on, at
+//   ch <= 32, a warp takes 32 query rows (two m-tiles, so each K and V
+//   fragment read from shared memory feeds two products), else 16.
+//   What is left: the products themselves. scripts/attention_variants.py
+//   times the exp and the rows a warp against their alternatives, and two
+//   diagnostics that drop the lo products or the split (see PERF.md).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int BQ = 64;              // query rows per block
-constexpr int BK = 32;              // keys per shared-memory tile
-constexpr int TPR = 4;              // threads per query row
-constexpr int THREADS = BQ * TPR;   // 256
-constexpr int KPT = BK / TPR;       // keys per thread per tile
-
-template <typename T> __device__ __forceinline__ float to_f(T x);
-template <> __device__ __forceinline__ float to_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// round an fp32 value to T's precision (the identity for T = float)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f<T>(from_f<T>(x));
-}
-
-// Load one BK x CH tile of (scaled) keys or values into shared memory as fp32.
-// Rows past the sequence end are zero-filled.
-template <typename T, int CH, int PITCH>
-__device__ __forceinline__ void load_tile(float (*dst)[PITCH], const T* __restrict__ src,
-                                          int k0, int t_len, int64_t st, float scale,
-                                          bool scaled) {
-  for (int e = threadIdx.x; e < BK * CH; e += THREADS) {
-    const int r = e / CH, c = e % CH;
-    float val = 0.f;
-    if (k0 + r < t_len) {
-      val = to_f<T>(src[(int64_t)(k0 + r) * st + c]);
-      if (scaled) val = round_to<T>(val * scale);
-    }
-    dst[r][c] = val;
-  }
-}
-
-template <typename T, int CH>
-__global__ void __launch_bounds__(THREADS)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                T* __restrict__ o, int t_len, int heads, int64_t sb, int64_t st,
-                int64_t sh, float scale) {
-  __shared__ float ks[BK][CH + 1];  // +1: the 4 threads of a row read 4 keys
-  __shared__ float vs[BK][CH];
-  __shared__ float ws[BQ][BK + 1];
-
-  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
-  const int row = threadIdx.x / TPR;  // query row within the tile
-  const int sub = threadIdx.x % TPR;  // which quarter of keys / channels
-  const int qi = blockIdx.x * BQ + row;
-  const bool qvalid = qi < t_len;
-  const int64_t base = (int64_t)b * sb + (int64_t)h * sh;
-  const T* __restrict__ kb = k + base;
-  const T* __restrict__ vb = v + base;
-
-  float qr[CH];
-#pragma unroll
-  for (int c = 0; c < CH; ++c)
-    qr[c] = qvalid ? round_to<T>(to_f<T>(q[base + (int64_t)qi * st + c]) * scale) : 0.f;
-
-  // ---- pass 1: row max and softmax denominator, online over key tiles ----
-  float m = -INFINITY, l = 0.f;
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    __syncthreads();
-    load_tile<T, CH, CH + 1>(ks, kb, k0, t_len, st, scale, true);
-    __syncthreads();
-    float s[KPT];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kk = sub + TPR * j;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) acc = fmaf(qr[c], ks[kk][c], acc);
-      s[j] = (k0 + kk < t_len) ? acc : -INFINITY;
-      tmax = fmaxf(tmax, s[j]);
-    }
-    if (tmax > -INFINITY) {
-      const float mn = fmaxf(m, tmax);
-      float add = 0.f;
-#pragma unroll
-      for (int j = 0; j < KPT; ++j) add += expf(s[j] - mn);
-      l = (m > -INFINITY ? l * expf(m - mn) : 0.f) + add;
-      m = mn;
-    }
-  }
-  // combine the 4 partial (max, sum) pairs of a row: lanes 4r..4r+3
-#pragma unroll
-  for (int off = 1; off < TPR; off <<= 1) {
-    const float mo = __shfl_xor_sync(0xffffffffu, m, off);
-    const float lo = __shfl_xor_sync(0xffffffffu, l, off);
-    const float mn = fmaxf(m, mo);
-    l = (m > -INFINITY ? l * expf(m - mn) : 0.f) + (mo > -INFINITY ? lo * expf(mo - mn) : 0.f);
-    m = mn;
-  }
-
-  // ---- pass 2: normalized weights, cast to T, times V (fp32 accumulate) ----
-  float acc[CH / TPR];
-#pragma unroll
-  for (int i = 0; i < CH / TPR; ++i) acc[i] = 0.f;
-  for (int k0 = 0; k0 < t_len; k0 += BK) {
-    __syncthreads();
-    load_tile<T, CH, CH + 1>(ks, kb, k0, t_len, st, scale, true);
-    load_tile<T, CH, CH>(vs, vb, k0, t_len, st, 1.f, false);
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < KPT; ++j) {
-      const int kk = sub + TPR * j;
-      float dot = 0.f;
-#pragma unroll
-      for (int c = 0; c < CH; ++c) dot = fmaf(qr[c], ks[kk][c], dot);
-      ws[row][kk] = (k0 + kk < t_len) ? round_to<T>(expf(dot - m) / l) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float w = ws[row][kk];
-#pragma unroll
-      for (int i = 0; i < CH / TPR; ++i) acc[i] = fmaf(w, vs[kk][sub + TPR * i], acc[i]);
-    }
-  }
-  if (qvalid) {
-    T* __restrict__ ob = o + (((int64_t)b * t_len + qi) * heads + h) * CH;
-#pragma unroll
-    for (int i = 0; i < CH / TPR; ++i) ob[sub + TPR * i] = from_f<T>(acc[i]);
-  }
-}
-
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int t_len,
-                   int heads, int ch, int64_t sb, int64_t st, int64_t sh, float scale,
-                   cudaStream_t stream) {
-  const dim3 grid((t_len + BQ - 1) / BQ, B * heads);
-  const T* qp = static_cast<const T*>(q);
-  const T* kp = static_cast<const T*>(k);
-  const T* vp = static_cast<const T*>(v);
-  T* op = static_cast<T*>(o);
-  switch (ch) {
-    case 16: attn_fwd_kernel<T, 16><<<grid, THREADS, 0, stream>>>(qp, kp, vp, op, t_len, heads, sb, st, sh, scale); break;
-    case 32: attn_fwd_kernel<T, 32><<<grid, THREADS, 0, stream>>>(qp, kp, vp, op, t_len, heads, sb, st, sh, scale); break;
-    case 64: attn_fwd_kernel<T, 64><<<grid, THREADS, 0, stream>>>(qp, kp, vp, op, t_len, heads, sb, st, sh, scale); break;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
 
 // ---- bf16 on tensor cores -------------------------------------------------------
 
@@ -557,19 +443,340 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o, int 
 #undef NSHMC_TC_CASE
 }
 
+// ---- float32 on tensor cores, 3xTF32 ---------------------------------------------
+
+constexpr int F32_WARPS = 4;        // 16 query rows each
+constexpr int F32_THREADS = 32 * F32_WARPS;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x, as the softmax takes exp(s - m) = 2^((s - m) log2 e)
+__device__ __forceinline__ float f32_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// cvt.rna.tf32.f32 (nearest, ties away from 0) as two integer operations on
+// the bits: half of the 13 dropped bits' range added to the magnitude, then
+// the 13 bits cut; the same value for every finite x and infinity, and
+// faster on an H100 than the cvt instruction
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// the lo part truncated to TF32: one operation, and its error (2^-10 of lo,
+// at most 2^-21 of x) leaves the products at about fp32 accuracy; faster
+// on an H100 than rounding it
+__device__ __forceinline__ uint32_t tf32_lo(float x) { return __float_as_uint(x) & 0xffffe000u; }
+
+// x = hi + lo to about fp32 accuracy, both TF32; the subtraction is exact
+// and kept from contraction
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_lo(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// d += a . b, one m16n8k8 tf32 product with fp32 accumulation
+__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a . b in 3xTF32, the small products first: a_lo b_hi + a_hi b_lo + a_hi b_hi
+__device__ __forceinline__ void mma_3xtf32(float d[4], const uint32_t ahi[4],
+                                           const uint32_t alo[4], uint32_t bh0,
+                                           uint32_t bh1, uint32_t bl0, uint32_t bl1) {
+  mma_tf32(d, alo, bh0, bh1);
+  mma_tf32(d, ahi, bl0, bl1);
+  mma_tf32(d, ahi, bh0, bh1);
+}
+
+template <int CH>
+using F32Row = float[CH + 4];  // padded: the fragment reads fall in distinct banks
+
+// keys per tile by head width: 32 at ch = 64, so that 3 stages of K hi/lo
+// and V hi/lo take 102 KB and two blocks fit an SM; 64 elsewhere
+constexpr int F32_BK_CH64 = 32;
+template <int CH> constexpr int f32_bk() { return CH == 64 ? F32_BK_CH64 : 64; }
+// from this length on, at ch <= 32, a warp takes two 16-row m-tiles, so
+// that each K and V fragment it reads from shared memory feeds two products
+constexpr int F32_MT2_MIN_T = 256;
+constexpr int F32_STAGES = 3;  // the tile being multiplied, the one being split, one landing
+
+// 16-byte chunks of one BK-key tile of K or V, keys k0.. into dst; rows past
+// T are zero-filled. Chunk u of a thread is element threadIdx.x + u * THREADS.
+template <int CH, int BK>
+__device__ __forceinline__ void f32_copy_tile(F32Row<CH>* dst, const float* __restrict__ src,
+                                              int64_t base, int k0, int t_len, int64_t st) {
+  constexpr int VPR = CH / 4;
+  for (int e = threadIdx.x; e < BK * VPR; e += F32_THREADS) {
+    const int r = e / VPR, c = (e % VPR) * 4;
+    const bool valid = k0 + r < t_len;
+    cp_async16(&dst[r][c], src + base + (int64_t)(valid ? k0 + r : 0) * st + c, valid);
+  }
+}
+
+// scale and split chunk u of this thread (its own copy, complete after its
+// cp.async wait): x * scale rounded once, as the plain version scales K; hi
+// in place, lo into `lo`
+template <int CH>
+__device__ __forceinline__ void f32_split_chunk(F32Row<CH>* hi, F32Row<CH>* lo, float scale,
+                                                int u) {
+  constexpr int VPR = CH / 4;
+  const int e = threadIdx.x + u * F32_THREADS;
+  const int r = e / VPR, c = (e % VPR) * 4;
+  const float4 x = *reinterpret_cast<const float4*>(&hi[r][c]);
+  uint4 h, l;
+  split_tf32(x.x * scale, h.x, l.x);
+  split_tf32(x.y * scale, h.y, l.y);
+  split_tf32(x.z * scale, h.z, l.z);
+  split_tf32(x.w * scale, h.w, l.w);
+  *reinterpret_cast<uint4*>(&hi[r][c]) = h;
+  *reinterpret_cast<uint4*>(&lo[r][c]) = l;
+}
+
+// MT: 16-row m-tiles a warp (16 * MT query rows), BK: keys per tile
+template <int CH, int BK, int MT>
+__global__ void __launch_bounds__(F32_THREADS)
+attn_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, float* __restrict__ o, int t_len, int heads,
+                    int64_t sb, int64_t st, int64_t sh, float scale) {
+  constexpr int KS = CH / 8;           // 8-channel k-steps of Q.K^T
+  constexpr int NT = BK / 8;           // 8-key n-tiles of S, k-steps of P.V
+  constexpr int CT = CH / 8;           // 8-channel n-tiles of O
+  constexpr int NS = F32_STAGES;
+  constexpr int CPT = BK * CH / 4 / F32_THREADS;  // 16-byte chunks a thread copies of K (of V)
+  static_assert(CPT * F32_THREADS * 4 == BK * CH, "a tile's chunks spread evenly");
+  using Row = F32Row<CH>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  // stage s holds K hi, K lo, V hi, V lo at tiles 4 s .. 4 s + 3
+  Row* sm = reinterpret_cast<Row*>(smem);
+  auto tile_at = [&](int stage, int which) { return sm + (4 * stage + which) * BK; };
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int b = blockIdx.y / heads, h = blockIdx.y % heads;
+  const int64_t base = (int64_t)b * sb + (int64_t)h * sh;
+  const int row0 = (blockIdx.x * F32_WARPS + warp) * 16 * MT;
+  const int n_tiles = (t_len + BK - 1) / BK;
+
+  auto issue = [&](int tile) {
+    const int stage = tile % NS;
+    f32_copy_tile<CH, BK>(tile_at(stage, 0), k, base, tile * BK, t_len, st);
+    f32_copy_tile<CH, BK>(tile_at(stage, 2), v, base, tile * BK, t_len, st);
+    cp_async_commit();
+  };
+  // split chunk u of 2 CPT (K's, then V's) of the tile in `stage`
+  auto split = [&](int stage, int u) {
+    if (u < CPT) f32_split_chunk<CH>(tile_at(stage, 0), tile_at(stage, 1), scale, u);
+    else f32_split_chunk<CH>(tile_at(stage, 2), tile_at(stage, 3), 1.f, u - CPT);
+  };
+  for (int tile = 0; tile < NS && tile < n_tiles; ++tile) issue(tile);
+
+  // scaled Q as m16k8 A fragments, split: a0 (row g, ch t), a1 (row g + 8),
+  // a2 (ch t + 4), a3 (row g + 8, ch t + 4); rows past T are 0
+  uint32_t qhi[MT][KS][4], qlo[MT][KS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = row0 + mt * 16 + g + (i & 1) * 8, c = kk * 8 + t + (i >> 1) * 4;
+        const float x = r < t_len ? q[base + (int64_t)r * st + c] * scale : 0.f;
+        split_tf32(x, qhi[mt][kk][i], qlo[mt][kk][i]);
+      }
+  // rows g (0) and g + 8 (1) of each m-tile: running max and denominator
+  float m[MT][2], l[MT][2], acc[MT][CT][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < CT; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  }
+
+  // tile 0 lands and is split before the loop; in the loop, each thread
+  // splits its chunks of tile i + 1 and goes on to tile i's products with no
+  // barrier between, and one barrier a tile, after the products, separates
+  // both from the next use of their stages
+  if (n_tiles > 2) cp_async_wait<2>();
+  else if (n_tiles > 1) cp_async_wait<1>();
+  else cp_async_wait<0>();
+#pragma unroll
+  for (int u = 0; u < 2 * CPT; ++u) split(0, u);
+  __syncthreads();
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile % NS, k0 = tile * BK;
+    if (tile + 2 < n_tiles) cp_async_wait<1>();  // tile + 1's chunks of this thread landed
+    else cp_async_wait<0>();
+    if (tile + 1 < n_tiles) {
+#pragma unroll
+      for (int u = 0; u < 2 * CPT; ++u) split((tile + 1) % NS, u);
+    }
+    const Row* khi = tile_at(stage, 0);
+    const Row* klo = tile_at(stage, 1);
+    const Row* vhi = tile_at(stage, 2);
+    const Row* vlo = tile_at(stage, 3);
+
+    // S = Qs . Ks^T: c0 (row g, key 2t), c1 (key 2t + 1), c2, c3 (row g + 8)
+    float s[MT][NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int key = j * 8 + g, c = kk * 8 + t;
+        const uint32_t bh0 = __float_as_uint(khi[key][c]), bh1 = __float_as_uint(khi[key][c + 4]);
+        const uint32_t bl0 = __float_as_uint(klo[key][c]), bl1 = __float_as_uint(klo[key][c + 4]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(s[mt][j], qhi[mt][kk], qlo[mt][kk], bh0, bh1, bl0, bl1);
+      }
+    }
+    if (k0 + BK > t_len) {  // the ragged last tile
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (k0 + j * 8 + t * 2 + (i & 1) >= t_len) s[mt][j][i] = -INFINITY;
+    }
+
+    // online softmax: the tile's row max over the 4 lanes of a row, the
+    // rescale of l and O, and P = exp(S - m) in place of S
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        float tmax = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+          tmax = fmaxf(tmax, fmaxf(s[mt][j][2 * hf], s[mt][j][2 * hf + 1]));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+        const float mn = fmaxf(m[mt][hf], tmax);
+        const float ml = mn > -INFINITY ? mn * LOG2E : 0.f;  // no row key seen yet: P = 0
+        const float alpha = m[mt][hf] > -INFINITY ? f32_exp2(fmaf(m[mt][hf], LOG2E, -ml)) : 0.f;
+        float add = 0.f;
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = f32_exp2(fmaf(s[mt][j][2 * hf + e], LOG2E, -ml));
+            s[mt][j][2 * hf + e] = p;
+            add += p;
+          }
+        l[mt][hf] = fmaf(l[mt][hf], alpha, add);
+        m[mt][hf] = mn;
+#pragma unroll
+        for (int j = 0; j < CT; ++j) {
+          acc[mt][j][2 * hf] *= alpha;
+          acc[mt][j][2 * hf + 1] *= alpha;
+        }
+      }
+
+    // O += P . V: n-tile j of S is k-step j of P.V, k-slot t carrying key
+    // 2t and slot t + 4 key 2t + 1, so a0..a3 = c0, c2, c1, c3
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][j][0], ahi[mt][0], alo[mt][0]);
+        split_tf32(s[mt][j][2], ahi[mt][1], alo[mt][1]);
+        split_tf32(s[mt][j][1], ahi[mt][2], alo[mt][2]);
+        split_tf32(s[mt][j][3], ahi[mt][3], alo[mt][3]);
+      }
+      const int key = j * 8 + 2 * t;
+#pragma unroll
+      for (int cn = 0; cn < CT; ++cn) {
+        const int c = cn * 8 + g;
+        const uint32_t bh0 = __float_as_uint(vhi[key][c]), bh1 = __float_as_uint(vhi[key + 1][c]);
+        const uint32_t bl0 = __float_as_uint(vlo[key][c]), bl1 = __float_as_uint(vlo[key + 1][c]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          mma_3xtf32(acc[mt][cn], ahi[mt], alo[mt], bh0, bh1, bl0, bl1);
+      }
+    }
+    // every warp is done with this tile's stage, and tile + 1 is split
+    __syncthreads();
+    if (tile + NS < n_tiles) issue(tile + NS);  // into this tile's stage
+  }
+
+  // l over the 4 lanes of each row, one division, and the store
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float lr = l[mt][hf] + __shfl_xor_sync(0xffffffffu, l[mt][hf], 1);
+      lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+      const int r = row0 + mt * 16 + g + hf * 8;
+      if (r < t_len) {
+        float* ob = o + (((int64_t)b * t_len + r) * heads + h) * CH;
+#pragma unroll
+        for (int j = 0; j < CT; ++j)
+          *reinterpret_cast<float2*>(ob + j * 8 + t * 2) =
+              make_float2(acc[mt][j][2 * hf] / lr, acc[mt][j][2 * hf + 1] / lr);
+      }
+    }
+}
+
+template <int CH, int MT>
+cudaError_t launch_f32_as(const void* q, const void* k, const void* v, void* o, int B,
+                          int t_len, int heads, int64_t sb, int64_t st, int64_t sh, float scale,
+                          cudaStream_t stream) {
+  constexpr int BK = f32_bk<CH>();
+  constexpr int smem = F32_STAGES * 4 * BK * (CH + 4) * 4;  // stages of K hi/lo, V hi/lo
+  static bool smem_set = false;
+  if (!smem_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        attn_fwd_f32_kernel<CH, BK, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    smem_set = true;
+  }
+  constexpr int rows = 16 * MT * F32_WARPS;  // query rows a block
+  const dim3 grid((t_len + rows - 1) / rows, B * heads);
+  attn_fwd_f32_kernel<CH, BK, MT><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), t_len, heads, sb, st, sh, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o, int B, int t_len,
+                       int heads, int ch, int64_t sb, int64_t st, int64_t sh, float scale,
+                       cudaStream_t stream) {
+  const bool mt2 = t_len >= F32_MT2_MIN_T;
+#define NSHMC_F32_ARGS q, k, v, o, B, t_len, heads, sb, st, sh, scale, stream
+  switch (ch) {
+    case 16: return mt2 ? launch_f32_as<16, 2>(NSHMC_F32_ARGS) : launch_f32_as<16, 1>(NSHMC_F32_ARGS);
+    case 32: return mt2 ? launch_f32_as<32, 2>(NSHMC_F32_ARGS) : launch_f32_as<32, 1>(NSHMC_F32_ARGS);
+    case 64: return launch_f32_as<64, 1>(NSHMC_F32_ARGS);  // two m-tiles would not fit the registers
+    default: return cudaErrorInvalidValue;
+  }
+#undef NSHMC_F32_ARGS
+}
+
 }  // namespace
 
 // q, k, v: (B, T, H, ch) with element strides (sb, st, sh, 1), shared by all
 // three (they are views of one qkv tensor); o: contiguous (B, T, H, ch).
-// dtype: 0 = float32 (scalar kernel), 1 = bfloat16 (tensor-core kernel; q, k,
-// v 16-byte aligned, strides multiples of 8). scale: ch^-1/4 already rounded
-// to dtype. Returns the cudaError_t of the launch (0 on success).
+// dtype: 0 = float32 (3xTF32 tensor-core kernel; q, k, v 16-byte aligned,
+// strides multiples of 4), 1 = bfloat16 (tensor-core kernel; 16-byte aligned,
+// strides multiples of 8). scale: ch^-1/4 already rounded to dtype. Returns
+// the cudaError_t of the launch (0 on success).
 extern "C" int nshmc_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    int dtype, int B, int t_len, int heads, int ch,
                                    long long sb, long long st, long long sh, float scale,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, B, t_len, heads, ch, sb, st, sh, scale, s);
+  if (dtype == 0) return launch_f32(q, k, v, o, B, t_len, heads, ch, sb, st, sh, scale, s);
   if (dtype == 1)
     return launch_tc(q, k, v, o, B, t_len, heads, ch, sb, st, sh, scale, s);
   return cudaErrorInvalidValue;

@@ -9,11 +9,13 @@ softmax are fp32, the weights are cast to v's dtype before the PV product.
   - `attention_forward`: the wrapper. A CUDA tensor launches a
     hand-written kernel of `csrc/attention.cu` (see its header for what
     bounds it on Hopper and how its design answers), chosen by dtype: bf16
-    runs the tensor-core kernel (`mma.sync`, `cp.async`, `ldmatrix`), f32
-    the scalar-FMA kernel, since tensor cores would need TF32 for f32 and
-    break its 1e-4 tolerance. A CPU tensor takes the plain version;
-    anything else raises. `attention_forward.launches` counts kernel
-    launches.
+    runs the two-pass tensor-core kernel (`mma.sync` m16n8k16, `cp.async`,
+    `ldmatrix`), f32 the one-pass online-softmax kernel on tensor cores in
+    3xTF32 (each product as three TF32 `mma.sync` m16n8k8 products of hi/lo
+    splits, which keeps fp32 accuracy where one TF32 product would break the
+    1e-4 f32 tolerance). A CPU tensor takes the plain version; anything else
+    raises. `attention_forward.launches` counts kernel launches of either
+    kernel, and `KERNEL_LAUNCHES[dtype].launches` those of the dtype's own.
   - `attention`: the `torch.autograd.Function` around the wrapper. Its
     backward recomputes the softmax in plain torch ops, a line-for-line
     translation of `_attention_bwd` (nshmc_tpu/ops/attention.py:108-121),
@@ -21,10 +23,10 @@ softmax are fp32, the weights are cast to v's dtype before the PV product.
 
 q, k and v arrive as strided views of one (B, T, H, 3, ch) qkv tensor. The
 kernels take their common strides, so the split costs no copy; views with
-differing strides are made contiguous first. The tensor-core kernel copies
-16-byte row chunks, so in bf16 the wrapper checks that the three pointers
-are 16-byte aligned and the strides multiples of 8 elements, and raises
-otherwise.
+differing strides are made contiguous first. Both kernels copy 16-byte row
+chunks, so the wrapper checks that the three pointers are 16-byte aligned
+and the strides multiples of 16 bytes (8 bf16 or 4 f32 elements), and
+raises otherwise.
 """
 from __future__ import annotations
 
@@ -98,10 +100,10 @@ def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     if not (q.device == k.device == v.device):
         raise ValueError("attention: q, k, v on different devices")
     sb, st, sh, _ = q.stride()
-    if q.dtype == torch.bfloat16 and (any(x.data_ptr() % 16 for x in (q, k, v))
-                                      or any(s_ % 8 for s_ in (sb, st, sh))):
-        raise ValueError(f"attention: bf16 views must be 16-byte aligned with strides "
-                         f"in multiples of 8, got strides {q.stride()}")
+    per_chunk = 16 // q.element_size()  # elements in a 16-byte copy
+    if any(x.data_ptr() % 16 for x in (q, k, v)) or any(s_ % per_chunk for s_ in (sb, st, sh)):
+        raise ValueError(f"attention: {q.dtype} views must be 16-byte aligned with strides "
+                         f"in multiples of {per_chunk}, got strides {q.stride()}")
     out = torch.empty((b, t, h, ch), dtype=q.dtype, device=q.device)
     scale = _kernel_scale(ch, q.dtype)
     with torch.cuda.device(q.device):
@@ -110,6 +112,18 @@ def launch(fn, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
                 _DTYPES[q.dtype], b, t, h, ch, sb, st, sh, scale, stream)
     _build.check(rc, "nshmc_attention_fwd")
     return out
+
+
+class LaunchCount:
+    """One kernel's launch count, `launches`."""
+
+    def __init__(self, name: str):
+        self.__name__, self.launches = name, 0
+
+
+# each kernel of csrc/attention.cu by the dtype that picks it
+KERNEL_LAUNCHES = {torch.bfloat16: LaunchCount("attn_fwd_tc_kernel"),
+                   torch.float32: LaunchCount("attn_fwd_f32_kernel")}
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -121,6 +135,7 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
         raise ValueError(f"attention: unsupported device {q.device}")
     out = launch(_launcher(), q, k, v)
     attention_forward.launches += 1
+    KERNEL_LAUNCHES[q.dtype].launches += 1
     return out
 
 

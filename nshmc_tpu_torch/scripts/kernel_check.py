@@ -9,8 +9,8 @@ checks, on seeded random inputs:
   - K1 at the flagship's attention shapes (8, 256, 8, 64) and (8, 64, 8, 64),
     the latent U-Net's (LATENT_ATTN_SHAPES: 14, 21 and 28 heads of 32
     channels at 1024, 256 and 64 tokens), and edge shapes (2, T, 2, ch) for
-    T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the tensor-core
-    kernel) and f32 (the scalar kernel);
+    T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the two-pass
+    tensor-core kernel) and f32 (the one-pass 3xTF32 tensor-core kernel);
   - K2c, both of its designs (the one launch and the two-pass one, each
     called directly, whichever the wrapper would pick), at the flagship's 18
     GN+SiLU shapes (FLAGSHIP_GN_SITES) and at GN_SHAPES (smaller and ragged
@@ -26,7 +26,9 @@ is measured: this is the build-and-check step before a kernel is timed.
 Needs a CUDA card and nvcc.
 
 Tolerances, with reasons:
-  - K1 f32: 1e-4 absolute (fp32 sums in another order).
+  - K1 f32: 1e-4 absolute (fp32 sums in another order; 3xTF32 products
+    keep about fp32 accuracy, one TF32 product would not: see
+    tests/test_torch_attention_f32.py).
   - K1 bf16: every element within 2^-7 |y| + 2^-7 S + 2^-12, with
     S = sum_j w_j |v_j| over the plain version's bf16 weights, and at most
     5% of the elements differing at all. The tensor cores sum the fp32

@@ -90,3 +90,56 @@ def test_image_io_round_trip(tmp_path):
     assert Image.open(tmp_path / "s.png").size == (16, 16)
     assert images.list_dataset(str(tmp_path)) == [str(tmp_path / "a.png"),
                                                   str(tmp_path / "s.png")]
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_host_randn_draws_on_the_host(device):
+    """The CLI's y0 noise and initial chain state are drawn on the host from
+    a CPU generator seeded seed + idx and then moved: on the CPU they are
+    that generator's values, and on the meta device, where no generator
+    exists, the helper still gives a tensor and advances the host generator
+    by the same draw."""
+    seed, idx, shape = 1234, 3, (2, 5, 3)
+    host = torch.Generator().manual_seed(seed + idx)
+    got = cli.host_randn(shape, host, torch.device(device))
+    ref = torch.Generator("cpu").manual_seed(seed + idx)
+    want = torch.randn(shape, generator=ref)
+    assert got.device.type == device and got.shape == want.shape and got.dtype == torch.float32
+    if device == "cpu":
+        assert torch.equal(got, want)
+    assert torch.equal(torch.randn(4, generator=host), torch.randn(4, generator=ref))
+
+
+def test_image_generators_keep_the_host_draws_on_the_cpu():
+    host, engine = cli.image_generators(41, torch.device("cpu"))
+    assert host.device.type == "cpu" and host.initial_seed() == 41
+    assert engine is host  # the CPU engine continues the host stream
+
+
+@pytest.mark.parametrize("algo", ["hmc", "hmc_latent"])
+def test_cli_draws_y0_noise_and_initial_state_on_the_host(tmp_path, monkeypatch, algo):
+    """Both CLIs draw y0's noise, then the chains' initial state, from the
+    image's host generator (seed + idx), in that order."""
+    calls = []
+    real = cli.host_randn
+
+    def spy(shape, generator, device):
+        calls.append((tuple(shape), generator.device.type, generator.initial_seed()))
+        out = real(shape, generator, device)
+        calls[-1] += (out.clone(),)
+        return out
+
+    monkeypatch.setattr(cli, "host_randn", spy)
+    data = _synthetic_dataset(tmp_path / "data")
+    cfg = CFG if algo == "hmc" else os.path.join(os.path.dirname(CFG), "tiny_latent_test.yaml")
+    steps = (["--hmc_epochs", "1", "--hmc_sampling", "1"] if algo == "hmc"
+             else ["--latent_epochs", "1", "--latent_sampling", "0"])
+    cli.main(["--config", cfg, "-i", str(tmp_path / "out"), "--data_path", str(data),
+              "--device", "cpu", "--no-bf16", "--algo", algo, "--chains", "2", "--seed", "5",
+              "--tau", "0.1", "--epsilon", "0.05", *steps])
+    assert [c[1:3] for c in calls] == [("cpu", 5), ("cpu", 5)]
+    (y_shape, *_, noise), (x_shape, *_, x_t) = calls
+    assert x_shape[0] == 2 and len(y_shape) == 2
+    ref = torch.Generator("cpu").manual_seed(5)
+    assert torch.equal(noise, torch.randn(y_shape, generator=ref))
+    assert torch.equal(x_t, torch.randn(x_shape, generator=ref))
