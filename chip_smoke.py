@@ -12,7 +12,9 @@ It builds the port's kernels from the sources in this checkout and then:
      from a seed), 3-step DDIM, 92% random inpainting, tau 1.0 / eps 0.05
      (L = 20), 8 chains as the batch, bf16 — for a few MH attempts, with every
      kernel's launch count set to 0 just before and read just after (K1's
-     f32 kernel: none). The
+     f32 kernel: none; K2a once for each GN+SiLU and GroupNorm32 call that
+     forward hooks count during the run, K2b once for each GN+SiLU call;
+     K2a's plain versions never, counted by wrappers). The
      anneal lasts one epoch and one sample is kept, and chain 0's accept
      uniform is 0, so it accepts every finite proposal: the run reaches the
      (0.1, 0.01) switch and the sample write at the flagship shape;
@@ -21,7 +23,13 @@ It builds the port's kernels from the sources in this checkout and then:
      plain version and the closest single PyTorch call with CUDA events
      (K1's from CUDA graphs, device time without the host's launch cost):
      K1 (bf16 on tensor cores; f32 on tensor cores in 3xTF32, its bound at
-     495 / 3 TFLOP/s) also at edge shapes, and the GroupNorm+SiLU backward K2c in both dtypes
+     495 / 3 TFLOP/s) also at edge shapes; K2a's one launch (sums, mean_c,
+     inv_c) at every GN+SiLU and GroupNorm32 shape and GN_SHAPES in both
+     dtypes, two calls bit-identical, and the eps 1e-6 variance clip;
+     nshmc_tpu_torch.scripts.groupnorm_stats_variants times it beside the
+     Triton chain it replaced, P1's chain and torch.var_mean at every K2a
+     site of the three paths (CUDA graphs and eager); K2b on plain
+     statistics; and the GroupNorm+SiLU backward K2c in both dtypes
      and both affine forms, each of its two designs (one launch, two-pass),
      also at kernel_check.GN_SHAPES, each case called twice for
      bit-identical results (the checks of nshmc_tpu_torch.scripts.
@@ -48,12 +56,14 @@ It builds the port's kernels from the sources in this checkout and then:
      with every kernel count set to 0 just before and read just after: K1 at
      all 16 attention blocks of each eps-net forward (the bf16 run through
      its bf16 kernel only, the f32 run through the 3xTF32 kernel only, each
-     kernel counted on its own), K2a/K2b at every GN+SiLU site, K2c at the VQ decoder's 23
-     and at none of the stop-gradded eps-net's, P1-P4 never; evals/s, peak
+     kernel counted on its own), K2a at every GN+SiLU and GroupNorm32 site,
+     K2b at every GN+SiLU site, K2c at the VQ decoder's 23 and at none of
+     the stop-gradded eps-net's, P1-P4 and K2a's plain versions never; evals/s, peak
      memory and useful TFLOP/s; (c) K1 at the latent U-Net's three shapes,
      bf16 and f32, timed beside SDPA and the bound; (d) K2a/K2b/K2c at the
-     VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's), timed in
-     bf16 and f32, K2c beside the F.group_norm + F.silu backward; (e) the
+     VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's, K2a at the
+     GroupNorm32 sites), K2b and K2c timed in bf16 and f32, K2c beside the
+     F.group_norm + F.silu backward; (e) the
      CLI, --algo hmc_latent, on configs/ffhq_latent.yaml in f32.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
@@ -62,6 +72,7 @@ one latent flagship evaluation in bf16 and in f32 are profiled
 (OUT_DIR/trace_main_path.json, trace_latent_path.json,
 trace_latent_f32_path.json) and nothing else runs.
 """
+import contextlib
 import json
 import math
 import os
@@ -129,6 +140,30 @@ def time_ms_graph(fn):
     return 1e3 * time_s_graph(fn)
 
 
+@contextlib.contextmanager
+def plain_calls(gn):
+    """Count the calls of K2a's plain versions while the block runs: on the
+    card the main path must make none (ops/groupnorm.py looks both up by
+    module name, so the counting wrappers see every call that it makes)."""
+    calls = {}
+    originals = {name: getattr(gn, name) for name in ("channel_stats_plain", "group_stats_plain")}
+
+    def counting(name, fn):
+        def wrapped(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for name, fn in originals.items():
+        calls[name] = 0
+        setattr(gn, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for name, fn in originals.items():
+            setattr(gn, name, fn)
+
+
 def bound_ms(bytes_moved, ops, dtype_name):
     """Least time for the work: the larger of bytes over HBM bandwidth (the
     data sheet's, as the probe scripts use) and operations over the peak
@@ -182,13 +217,14 @@ def build_kernels(torch, build, gn):
 
     t0 = time.time()
     threads = [threading.Thread(target=nvcc, args=(s,))
-               for s in ("attention.cu", "groupnorm_bwd.cu", "stream_probe.cu")]
+               for s in ("attention.cu", "groupnorm_bwd.cu", "groupnorm_stats.cu",
+                         "stream_probe.cu")]
     for t in threads:
         t.start()
     x = torch.randn(2, 64, 64, device="cuda")
-    for dt in (torch.float32, torch.bfloat16):
+    for dt in (torch.float32, torch.bfloat16):  # K2b's Triton JIT, on plain statistics
         xs = x.to(dt)
-        m, inv = gn.group_combine(gn.channel_stats(xs), 64)
+        _, m, inv = gn.group_stats_plain(xs)
         gn.normalize_silu(xs, m, inv, torch.ones(64, device="cuda"), torch.zeros(64, device="cuda"))
         gn.normalize_silu(xs, m, inv, torch.ones(2, 64, device="cuda"),
                           torch.zeros(2, 64, device="cuda"))
@@ -506,16 +542,20 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
     state = latent.init_latent_chains(hcfg, CHAINS, p.z_shape, dev, z=p.z_t)
     print(f"latent flagship ({dname}) built in {time.time() - t0:.1f} s")
     with torch.no_grad():  # the shapes each kernel sees, by forward hooks
-        unet_gn, unet_attn = kc.count_sites(p.ldm.unet, lambda: p.ldm.unet(
+        unet_gn, unet_attn, unet_norm = kc.count_sites(p.ldm.unet, lambda: p.ldm.unet(
             state.z, torch.full((CHAINS,), 500.0, device=dev)))
-        dec_gn, dec_attn = kc.count_sites(p.ldm.first_stage.decoder,
-                                          lambda: p.ldm.decode_first_stage(state.z))
+        dec_gn, dec_attn, dec_norm = kc.count_sites(p.ldm.first_stage.decoder,
+                                                    lambda: p.ldm.decode_first_stage(state.z))
     check(unet_gn == kc.LATENT_UNET_GN_SITES, f"latent U-Net GN+SiLU sites {unet_gn}")
     check(unet_attn == kc.LATENT_ATTN_SITES, f"latent U-Net attention blocks {unet_attn}")
+    check(unet_norm == kc.LATENT_UNET_NORM_SITES, f"latent U-Net GroupNorm32 sites {unet_norm}")
     check(dec_gn == kc.VQ_DECODER_GN_SITES and not dec_attn, f"VQ decoder sites {dec_gn}")
-    n_unet_gn, n_attn, n_dec_gn = (sum(v.values()) for v in (unet_gn, unet_attn, dec_gn))
+    check(dec_norm == kc.VQ_DECODER_NORM_SITES, f"VQ decoder GroupNorm32 sites {dec_norm}")
+    n_unet_gn, n_attn, n_dec_gn, n_unet_norm, n_dec_norm = (
+        sum(v.values()) for v in (unet_gn, unet_attn, dec_gn, unet_norm, dec_norm))
     print(f"latent U-Net forward: {n_unet_gn} GN+SiLU sites, {n_attn} attention blocks "
-          f"{dict(unet_attn)}; VQ decoder: {n_dec_gn} GN+SiLU sites at eps 1e-6 {dict(dec_gn)}")
+          f"{dict(unet_attn)}, {n_unet_norm} GroupNorm32 sites; VQ decoder: {n_dec_gn} GN+SiLU "
+          f"sites at eps 1e-6 {dict(dec_gn)}, {n_dec_norm} GroupNorm32 site")
     tf32_before = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = f32  # f32: torch's default, under which the CLI runs
     try:
@@ -527,7 +567,7 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
                               "latent_path" if not f32 else "latent_f32_path",
                               f"latent flagship {dname}")
         return latent_run(torch, kc, gn, p, hcfg, state, counters, dtype,
-                          (n_unet_gn, n_attn, n_dec_gn))
+                          (n_unet_gn, n_attn, n_dec_gn, n_unet_norm, n_dec_norm))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32_before
 
@@ -535,12 +575,13 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
 def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
     """The latent flagship's HMC run of `phase_latent_flagship` in `dtype`,
     with `sites` (U-Net GN+SiLU sites, attention blocks, decoder GN+SiLU
-    sites a forward): its launch counts and chain checks; returns the
+    sites, U-Net and decoder GroupNorm32 sites a forward): its launch counts,
+    no call of K2a's plain versions, and the chain checks; returns the
     path's record."""
     from nshmc_tpu_torch.hmc import latent
 
     dev, dname = torch.device("cuda"), str(dtype).split(".")[1]
-    n_unet_gn, n_attn, n_dec_gn = sites
+    n_unet_gn, n_attn, n_dec_gn, n_unet_norm, n_dec_norm = sites
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     itemsize = torch.empty((), dtype=dtype).element_size()
     for f in (*counters.values(), gn.groupnorm_silu_backward):
@@ -563,7 +604,9 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=draws(), callback=timed)
+    with plain_calls(gn) as plain:
+        out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=draws(),
+                                    callback=timed)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     bwd_calls = gn.groupnorm_silu_backward.launches
@@ -578,15 +621,19 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
           f"TFLOP/s; peak memory {peak_gb:.2f} GB")
     print(f"latent path ({dname}) kernel launches: {launches}; GN+SiLU backward calls "
           f"{bwd_calls} (per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
-    # K1 at every attention block of the 3 eps-net forwards; K2a/K2b at every
-    # GN+SiLU site of those and of the decoder; K2c at the decoder's only (the
-    # eps-net is stop-gradded), each by the design bwd_design picks
+    # K1 at every attention block of the 3 eps-net forwards; K2a at every
+    # GN+SiLU and GroupNorm32 site of those and of the decoder, K2b at every
+    # GN+SiLU site; K2c at the decoder's only (the eps-net is stop-gradded),
+    # each by the design bwd_design picks
     want_bwd = {"gn_backward": 0, "gn_backward_twopass": 0}
     for shape, n in kc.VQ_DECODER_GN_SITES.items():
         want_bwd[BWD_KERNELS[gn.bwd_design(*shape, itemsize, sms)]] += n * n_evals
     k1 = "attention_f32" if dtype == torch.float32 else "attention"
-    want = {k1: 3 * n_attn * n_evals, "gn_stats": (3 * n_unet_gn + n_dec_gn) * n_evals,
+    want = {k1: 3 * n_attn * n_evals,
+            "gn_stats": (3 * (n_unet_gn + n_unet_norm) + n_dec_gn + n_dec_norm) * n_evals,
             "gn_apply": (3 * n_unet_gn + n_dec_gn) * n_evals, **want_bwd}
+    check(not any(plain.values()), f"latent path ({dname}): K2a's plain versions ran on the "
+                                   f"card: {plain}")
     check(bwd_calls == n_dec_gn * n_evals,
           f"{bwd_calls} GN+SiLU backward calls, {n_dec_gn * n_evals} expected: one per VQ "
           f"decoder site, none in the stop-gradded eps-net")
@@ -614,13 +661,16 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
                 attempts=hcfg.total_attempts, attempt_s=steps, dtype=dname)
 
 
-def phase_latent_kernels(torch, attn, gn, kc):
+def phase_latent_kernels(torch, attn, gn, kc, stats_records):
     """(c) K1 at the latent U-Net's three attention shapes in bf16 and f32,
     and (d) K2a, K2b and K2c at the VQ decoder's GN+SiLU sites with eps
-    1e-6 (both dtypes, both affine forms; K2c each design that can take the
-    call and the wrapper, two calls bit-identical), K2a and K2b also at the
-    latent U-Net's sites, each against its plain version; K1 and the VQ
-    decoder's cases timed in both dtypes. Returns {kernel: [records]}."""
+    1e-6 (both dtypes, both affine forms; K2a and K2c two calls
+    bit-identical, K2c each design that can take the call and the wrapper),
+    K2a and K2b also at the latent U-Net's sites and K2a at the GroupNorm32
+    sites, each against its plain version; K1 and the VQ decoder's K2b and
+    K2c timed in both dtypes, K2a's times taken from `stats_records` (phase
+    3's groupnorm_stats_variants run) at every latent site. Returns
+    {kernel: [records]}."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -636,9 +686,10 @@ def phase_latent_kernels(torch, attn, gn, kc):
             for dt in (torch.bfloat16, torch.float32):
                 dname = str(dt).split(".")[1]
                 x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
-                st_k, st_p = gn.channel_stats(x), gn.channel_stats_plain(x)
-                st_rel = float((st_k - st_p).abs().max() / st_p.abs().max())
-                mean_c, inv_c = gn.group_combine(st_p, r, gn.NUM_GROUPS, eps)
+                st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+                check(st["ok"], f"K2a {part} {shape} {dname} eps {eps:g}: "
+                                f"{kc.stats_summary(st)}")
+                mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
                 for form in kc.AFFINE_FORMS:
                     aff = (cc,) if form == "per_channel" else (b, cc)
                     sc = 1 + 0.3 * torch.randn(aff, generator=g, device=dev)
@@ -647,9 +698,8 @@ def phase_latent_kernels(torch, attn, gn, kc):
                     y_p = gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
                     diff = (y_k.float() - y_p.float()).abs()
                     tol = 1e-4 if dt == torch.float32 else 2 ** -7 * y_p.float().abs() + 1e-3
-                    check(bool((diff <= tol).all()) and st_rel <= 1e-5,
-                          f"K2 {part} {shape} {dname} {form}: stats rel {st_rel:.2e}, "
-                          f"apply {float(diff.max()):.2e}")
+                    check(bool((diff <= tol).all()),
+                          f"K2b {part} {shape} {dname} {form}: apply {float(diff.max()):.2e}")
                     worst[(part, dname)] = max(worst.get((part, dname), 0.0), float(diff.max()))
                     if part != "vq_decoder":
                         continue
@@ -659,36 +709,54 @@ def phase_latent_kernels(torch, attn, gn, kc):
                         check(res["ok"], f"K2c {design or 'wrapper'} {shape} {dname} {form} "
                                          f"eps {eps:g}: {res}")
                 if part == "vq_decoder":
-                    out["gn_stats"].append(gn_forward_times(torch, gn, x, "stats", eps))
-                    out["gn_apply"].append(gn_forward_times(torch, gn, x, "apply", eps))
+                    out["gn_apply"].append(gn_apply_times(torch, gn, x, eps))
                     design = gn.bwd_design(*shape, dt.itemsize, sms)
                     out[BWD_KERNELS[design]].append(gn_backward_times(
                         torch, gn, kc, shape, dt, design, eps, g, dev))
-    print(f"K2 at the latent sites agree (eps 1e-6 at the VQ decoder's, 1e-5 at the U-Net's): "
+    for (shape, eps) in [*((s_, 1e-6) for s_ in kc.VQ_DECODER_NORM_SITES),
+                         *((s_, 1e-5) for s_ in kc.LATENT_UNET_NORM_SITES)]:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+            st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+            check(st["ok"], f"K2a GroupNorm32 site {shape} {dt} eps {eps:g}: "
+                            f"{kc.stats_summary(st)}")
+    out["gn_stats"] = [stats_record(v) for v in stats_records if v["path"] == "latent"]
+    print(f"K2 at the latent sites agree (eps 1e-6 at the VQ decoder's, 1e-5 at the U-Net's; "
+          f"K2a also at the GroupNorm32 sites, two calls bit-identical): "
           f"apply worst abs err {worst}; K2c at every VQ decoder site, each design that can "
           f"take it and the wrapper, two calls bit-identical")
     return out
 
 
-def gn_forward_times(torch, gn, x, which, eps):
-    """K2a ("stats") or K2b ("apply") at x (B, R, C), bf16 or f32: kernel and
-    plain device ms from CUDA graphs (at the smaller sites the host's launch
-    of a Triton kernel outlasts the kernel), the kernel's eager call (CUDA
-    events, host included) and the bound."""
+def stats_record(v):
+    """A groupnorm_stats_variants record as a K2a record of the kernels
+    line: the one launch's device ms (CUDA graphs) and eager ms, its plain
+    version's, `torch.var_mean`'s (library) and the Triton chain's it
+    replaced (earlier), and the bound from the record's shape."""
+    b, r, cc = v["shape"]
+    n, es = b * r * cc, 2 if v["dtype"] == "bfloat16" else 4
+    bms, by = bound_ms(n * es + b * 4 * cc * 4, 3 * n, "float32")
+    return dict(shape=v["shape"], dtype=v["dtype"], eps=v["eps"], ms=v["new_ms"],
+                eager_ms=v["new_eager_ms"], plain_ms=v["plain_ms"], library_ms=v["var_mean_ms"],
+                earlier_ms=v["triton_chain_ms"], earlier_eager_ms=v["triton_chain_eager_ms"],
+                bound_ms=bms, bound_by=by)
+
+
+def gn_apply_times(torch, gn, x, eps):
+    """K2b at x (B, R, C), bf16 or f32: kernel and plain device ms from CUDA
+    graphs (at the smaller sites the host's launch of a Triton kernel
+    outlasts the kernel), the kernel's eager call (CUDA events, host
+    included) and the bound."""
     b, r, cc = x.shape
     n, es = b * r * cc, x.element_size()
     dname = str(x.dtype).split(".")[1]
-    if which == "stats":
-        run, plain_run = (lambda: gn.channel_stats(x)), (lambda: gn.channel_stats_plain(x))
-        bms, by = bound_ms(n * es + b * 2 * cc * 4, 3 * n, "float32")
-    else:
-        mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
-        sc, bi = torch.ones((b, cc), device=x.device), torch.zeros((b, cc), device=x.device)
-        run = lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi)
-        plain_run = lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
-        bms, by = bound_ms(2 * n * es + 4 * b * cc * 4, 8 * n, "float32")
+    mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r, gn.NUM_GROUPS, eps)
+    sc, bi = torch.ones((b, cc), device=x.device), torch.zeros((b, cc), device=x.device)
+    run = lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi)
+    plain_run = lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
+    bms, by = bound_ms(2 * n * es + 4 * b * cc * 4, 8 * n, "float32")
     ms, plain, eager = time_ms_graph(run), time_ms_graph(plain_run), time_ms(run)
-    print(f"K2 {which} {tuple(x.shape)} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA "
+    print(f"K2 apply {tuple(x.shape)} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA "
           f"graphs; eager {eager:.4f}), plain {plain:.4f}, bound {bms:.4f} ({by}), "
           f"{100 * bms / ms:.0f}% of bound")
     return dict(shape=list(x.shape), dtype=dname, ms=ms, eager_ms=eager, plain_ms=plain,
@@ -780,6 +848,7 @@ def main():
         from nshmc_tpu_torch.ops import groupnorm as gn
         from nshmc_tpu_torch.ops import stream_probe as sp
         from nshmc_tpu_torch.sampling import ddim
+        from nshmc_tpu_torch.scripts import groupnorm_stats_variants as stats_variants
         from nshmc_tpu_torch.scripts import kernel_check as kc
         from nshmc_tpu_torch import operators as ops_mod
         from nshmc_tpu_torch import schedules as sched_mod
@@ -830,7 +899,7 @@ def main():
     # kernel sees (GroupNorm+SiLU sites and attention blocks)
     warm = []
     with torch.no_grad():
-        gn_shapes, attn_sites = kc.count_sites(model, lambda: warm.append(
+        gn_shapes, attn_sites, norm_shapes = kc.count_sites(model, lambda: warm.append(
             model(state.x, torch.full((CHAINS,), 750.0, device=dev))))
     warm = warm[0]
     torch.cuda.synchronize()
@@ -850,11 +919,14 @@ def main():
     # the main path's kernels, and the probe kernels, which it must not run
     check(gn_shapes == kc.FLAGSHIP_GN_SITES,
           f"GN+SiLU sites {gn_shapes} are not kernel_check.FLAGSHIP_GN_SITES")
+    check(norm_shapes == kc.FLAGSHIP_NORM_SITES,
+          f"GroupNorm32 sites {norm_shapes} are not kernel_check.FLAGSHIP_NORM_SITES")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     on_path = set(MAIN_PATH_KERNELS) | {BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]
                                         for shape in kc.FLAGSHIP_GN_SITES}
     counters = {"attention": attn.KERNEL_LAUNCHES[torch.bfloat16],
-                "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.channel_stats,
+                "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.group_stats,
+                "gn_stats_triton_chain": stats_variants.triton_chain,
                 "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
                 "gn_backward_twopass": gn.launch_twopass,
                 **{f.__name__: f for f in sp.KERNELS}}
@@ -876,7 +948,11 @@ def main():
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = engine.run_hmc(loss_fn, hcfg, state, gen, draws=draws(), callback=timed)
+    run = {}  # forward hooks count every GN+SiLU and GroupNorm32 call, recomputes included
+    with plain_calls(gn) as plain:
+        gn_calls, _, norm_calls = kc.count_sites(model, lambda: run.setdefault(
+            "out", engine.run_hmc(loss_fn, hcfg, state, gen, draws=draws(), callback=timed)))
+    out = run["out"]
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     bwd_calls = gn.groupnorm_silu_backward.launches
@@ -897,6 +973,16 @@ def main():
     check(bwd_calls == 3 * evals * len(steps) * n_gn
           and bwd_calls == launches["gn_backward"] + launches["gn_backward_twopass"],
           f"{bwd_calls} GN+SiLU backward calls for {n_gn} sites: {launches}")
+    n_evals = evals * len(steps)
+    n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
+    print(f"main path K2a launches per energy+grad eval by shape (hooks; GN+SiLU, then "
+          f"GroupNorm32): { {str(k): v / n_evals for k, v in sorted(gn_calls.items())} }, "
+          f"{ {str(k): v / n_evals for k, v in sorted(norm_calls.items())} }; plain "
+          f"K2a calls {plain}")
+    check(launches["gn_stats"] == n_silu + n_norm and launches["gn_apply"] == n_silu,
+          f"K2a launched {launches['gn_stats']} times and K2b {launches['gn_apply']} for "
+          f"{n_silu} GN+SiLU and {n_norm} GroupNorm32 calls")
+    check(not any(plain.values()), f"K2a's plain versions ran on the card: {plain}")
     for k, v in launches.items():
         if k in on_path:
             check(v > 0, f"kernel {k} was never launched on the main path")
@@ -952,15 +1038,35 @@ def main():
           f"(16, 32, 64); worst bf16: {kc.attention_summary(edge[torch.bfloat16])}; worst "
           f"f32: {kc.attention_summary(edge[torch.float32])}")
 
-    worst = {}  # (kernel, dtype) -> max abs err over the shapes and forms
+    stats_worst = {}  # dtype -> worst of each K2a measure over the shapes
+    for shape in dict.fromkeys([*sorted(gn_shapes), *sorted(norm_shapes), *kc.GN_SHAPES]):
+        for dt in (torch.bfloat16, torch.float32):
+            x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+            res = kc.gn_stats_check(x, gn.NUM_GROUPS, gn.EPS, g)
+            check(res["ok"], f"K2a {shape} {dt}: {kc.stats_summary(res)}")
+            w = stats_worst.setdefault(dt, dict.fromkeys(("sums_rel", "mean_err", "inv_rel",
+                                                          "apply_err"), 0.0))
+            for k_ in w:
+                w[k_] = max(w[k_], res[k_])
+            if (shape, dt) == ((CHAINS, d * d, mcfg.model_channels), torch.bfloat16):
+                hot_stats = res
+    for dt in (torch.bfloat16, torch.float32):
+        res = kc.gn_clip_check(dt, dev)
+        check(res["ok"], f"K2a clip case {dt}: {res}")
+        print(f"K2a clip case (8, 4096, 512) {dt} eps 1e-6: mean_c, inv_c finite, "
+              f"{res['negative_groups']} groups below 0 before the clip (finiteness asserted: "
+              f"the true variances lie below the fp32 sums' rounding)")
+    print(f"K2a (one launch): {len(gn_shapes)} GN+SiLU, {len(norm_shapes)} GroupNorm32 and "
+          f"{len(kc.GN_SHAPES)} edge shapes x (bf16, f32) agree, two calls bit-identical: "
+          f"worst {json.dumps({str(k).split('.')[1]: v for k, v in stats_worst.items()})} "
+          f"({kc.STATS_TOL})")
+
+    worst = {}  # K2b on plain statistics, both affine forms
     for (b, r, cc) in sorted(gn_shapes):
         for dt in (torch.bfloat16, torch.float32):
             dname = str(dt).split(".")[1]
             x = (1.5 * torch.randn((b, r, cc), generator=g, device=dev) + 0.3).to(dt)
-            st_k, st_p = gn.channel_stats(x), gn.channel_stats_plain(x)
-            st_abs = float((st_k - st_p).abs().max())
-            st_rel = st_abs / float(st_p.abs().max())  # fp32 sums of r values
-            mean_c, inv_c = gn.group_combine(st_p, r)
+            mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
             for form in ("per_channel", "per_batch_channel"):
                 shape = (cc,) if form == "per_channel" else (b, cc)
                 sc = 1 + 0.3 * torch.randn(shape, generator=g, device=dev)
@@ -972,27 +1078,25 @@ def main():
                     ok = bool((diff <= 1e-4).all())
                 else:  # one bf16 rounding step apart: |d| <= 2^-7 |y| + 1e-3
                     ok = bool((diff <= 2 ** -7 * y_p.float().abs() + 1e-3).all())
-                check(ok and st_rel <= 1e-5,
-                      f"GroupNorm+SiLU {(b, r, cc)} {dname} {form}: stats rel {st_rel:.2e}, "
-                      f"apply max {float(diff.max()):.2e}")
+                check(ok, f"K2b {(b, r, cc)} {dname} {form}: apply max {float(diff.max()):.2e}")
                 key = ("gn_apply", dname, (b, r, cc))
                 worst[key] = max(worst.get(key, 0.0), float(diff.max()))
-            worst[("gn_stats", dname, (b, r, cc))] = st_abs
-            worst[("gn_stats_rel", dname, (b, r, cc))] = st_rel
     top = lambda kern, dname: max(v for k, v in worst.items() if k[:2] == (kern, dname))
-    print(f"K2 GroupNorm+SiLU: {len(gn_shapes)} main-path shapes x (bf16, f32) x (per-channel, "
-          f"per-(batch, channel) affine) agree: stats worst rel err bf16 "
-          f"{top('gn_stats_rel', 'bfloat16'):.2e}, f32 {top('gn_stats_rel', 'float32'):.2e} "
-          f"(tol 1e-5); apply worst abs err f32 {top('gn_apply', 'float32'):.2e} (tol 1e-4), "
-          f"bf16 {top('gn_apply', 'bfloat16'):.2e} (tol 2^-7 |y| + 1e-3)")
+    print(f"K2b: {len(gn_shapes)} main-path shapes x (bf16, f32) x (per-channel, "
+          f"per-(batch, channel) affine) agree: worst abs err f32 "
+          f"{top('gn_apply', 'float32'):.2e} (tol 1e-4), bf16 {top('gn_apply', 'bfloat16'):.2e} "
+          f"(tol 2^-7 |y| + 1e-3)")
 
-    for (b, r, cc), n_sites in sorted(gn_shapes.items()):  # times at each shape, bf16
+    # K2a's four ways side by side at every K2a site of the three paths, in this call
+    stats_records = stats_variants.main([])
+    check(all(v["agrees"] for v in stats_records), "K2a disagrees at a variants site")
+    print(f"K2a variants: {json.dumps(stats_variants.summary(stats_records))}")
+    stats_by = {(tuple(v["shape"]), v["dtype"]): v for v in stats_records}
+    for (b, r, cc), n_sites in sorted(gn_shapes.items()):  # K2b and the whole site, bf16
         x = (1.5 * torch.randn((b, r, cc), generator=g, device=dev) + 0.3).to(torch.bfloat16)
         sc = 1 + 0.3 * torch.randn((b, cc), generator=g, device=dev)
         bi = 0.3 * torch.randn((b, cc), generator=g, device=dev)
         mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
-        st_ms = time_ms(lambda: gn.channel_stats(x))
-        st_plain = time_ms(lambda: gn.channel_stats_plain(x))
         ap_ms = time_ms(lambda: gn.normalize_silu(x, mean_c, inv_c, sc, bi))
         ap_plain = time_ms(lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi))
         whole = time_ms(lambda: gn.groupnorm_silu(x, sc, bi))
@@ -1001,19 +1105,22 @@ def main():
         lib = time_ms(lambda: torch.nn.functional.silu(
             torch.nn.functional.group_norm(x4, 32, w1, b1, 1e-5)))
         n = b * r * cc
-        st_b, st_by = bound_ms(n * 2 + b * 2 * cc * 4, 3 * n, "float32")
+        st = stats_by[((b, r, cc), "bfloat16")]
+        st_b, st_by = bound_ms(n * 2 + b * 4 * cc * 4, 3 * n, "float32")
         ap_b, ap_by = bound_ms(2 * n * 2 + 4 * b * cc * 4, 8 * n, "float32")
-        print(f"K2 {(b, r, cc)} bf16, {n_sites} sites/forward: stats {st_ms:.4f} ms "
-              f"(plain {st_plain:.4f}, bound {st_b:.4f}), apply {ap_ms:.4f} ms (plain "
-              f"{ap_plain:.4f}, bound {ap_b:.4f}); whole GN+SiLU {whole:.4f} ms vs "
-              f"F.group_norm+F.silu {lib:.4f} ms")
+        print(f"K2 {(b, r, cc)} bf16, {n_sites} sites/forward: stats {st['new_ms']:.4f} ms "
+              f"(CUDA graphs; Triton chain {st['triton_chain_ms']:.4f}, var_mean "
+              f"{st['var_mean_ms']:.4f}, plain {st['plain_ms']:.4f}, bound {st_b:.4f}), apply "
+              f"{ap_ms:.4f} ms (plain {ap_plain:.4f}, bound {ap_b:.4f}); whole GN+SiLU "
+              f"{whole:.4f} ms vs F.group_norm+F.silu {lib:.4f} ms (eager)")
         if (b, r, cc) == (CHAINS, d * d, mcfg.model_channels):
-            common = dict(shape=[b, r, cc], dtype="bfloat16", library_ms=None)
-            rec("gn_stats", ms=st_ms, plain_ms=st_plain, bound_ms=st_b, bound_by=st_by,
-                max_abs_err=worst[("gn_stats", "bfloat16", (b, r, cc))],
-                tolerance="1e-5 x max|sum|", **common)
+            common = dict(shape=[b, r, cc], dtype="bfloat16")
+            rec("gn_stats", ms=st["new_ms"], plain_ms=st["plain_ms"], bound_ms=st_b,
+                bound_by=st_by, library_ms=st["var_mean_ms"], earlier_ms=st["triton_chain_ms"],
+                eager_ms=st["new_eager_ms"], max_abs_err=hot_stats["sums_abs"],
+                tolerance=kc.STATS_TOL, **common)
             rec("gn_apply", ms=ap_ms, plain_ms=ap_plain, bound_ms=ap_b, bound_by=ap_by,
-                max_abs_err=worst[("gn_apply", "bfloat16", (b, r, cc))],
+                library_ms=None, max_abs_err=worst[("gn_apply", "bfloat16", (b, r, cc))],
                 tolerance="2^-7 |y| + 1e-3", **common)
             print(f"K2 whole GN+SiLU at {(b, r, cc)} bf16: {whole:.4f} ms, "
                   f"F.group_norm+F.silu {lib:.4f} ms")
@@ -1142,7 +1249,7 @@ def main():
     code_share = phase_latent_small(torch, np, engine)
     latent_bf16 = phase_latent_flagship(torch, np, engine, kc, gn, counters)
     latent_f32 = phase_latent_flagship(torch, np, engine, kc, gn, counters, dtype=torch.float32)
-    latent_kernels = phase_latent_kernels(torch, attn, gn, kc)
+    latent_kernels = phase_latent_kernels(torch, attn, gn, kc, stats_records)
     phase_latent_cli(np)
     print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
 
@@ -1153,7 +1260,7 @@ def main():
     probe_src = "nshmc_tpu_torch/csrc/stream_probe.cu"
     attn_src = ("cuda", "nshmc_tpu_torch/csrc/attention.cu", "nshmc_tpu/ops/attention.py:44")
     sources = {"attention": attn_src, "attention_f32": attn_src,
-               "gn_stats": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
+               "gn_stats": ("cuda", "nshmc_tpu_torch/csrc/groupnorm_stats.cu",
                             "nshmc_tpu/ops/groupnorm.py:55"),
                "gn_apply": ("triton", "nshmc_tpu_torch/ops/groupnorm.py",
                             "nshmc_tpu/ops/groupnorm.py:75"),
@@ -1189,13 +1296,17 @@ def main():
                         "latent_shapes": [x for x in latent_kernels.get(key, [])
                                           if kdt in (None, x["dtype"])],
                         **({"flagship_shapes": attn_f32} if name == "attention_f32" else {}),
+                        **({"flagship_shapes": [stats_record(v) for v in stats_records
+                                                if v["path"] == "flagship"]}
+                           if name == "gn_stats" else {}),
                         "max_abs_err": r_["max_abs_err"],
                         "ms": r_["ms"], "plain_ms": r_["plain_ms"], "bound_ms": r_["bound_ms"],
                         "bound_by": r_["bound_by"], "library_ms": r_["library_ms"],
                         "shape": r_["shape"], "dtype": r_["dtype"],
                         "tolerance": r_["tolerance"],
                         **{k: r_[k] for k in ("five_pass_floor_ms", "timing",
-                                              "picked_at_this_shape") if k in r_}})
+                                              "picked_at_this_shape", "earlier_ms", "eager_ms")
+                           if k in r_}})
 
     def path_record(run):
         return {"energy_grad_evals_per_s": run["evals_per_s"], "peak_memory_gb": run["peak_gb"],

@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.groupnorm import channel_stats_plain, group_combine, groupnorm_silu
+from ..ops.groupnorm import group_moments, group_stats, groupnorm_silu
 
 NUM_GROUPS = 32
 EPS = 1e-5
@@ -50,11 +50,43 @@ def nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+class _GroupStats(torch.autograd.Function):
+    """(mean_c, inv_c), each (B, C) fp32, of x: (B, R, C) by `group_stats`
+    (K2a's one launch on the card, its plain version on the CPU). The
+    backward is their closed-form gradient in plain torch, as JAX
+    differentiates `ChanStatsGroupNorm` in XLA: with n = R * C / groups,
+    d mean / dx = 1 / n and d inv / dx = -inv^3 (x - mean) / n, the latter
+    0 where the variance clip is active (E[x^2] - mean^2 < 0)."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups, eps):
+        sums, mean_c, inv_c = group_stats(x.contiguous(), num_groups, eps)
+        ctx.save_for_backward(x, sums, mean_c, inv_c)
+        ctx.num_groups = num_groups
+        return mean_c, inv_c
+
+    @staticmethod
+    def backward(ctx, g_mean, g_inv):
+        x, sums, mean_c, inv_c = ctx.saved_tensors
+        b, r, c = x.shape
+        cg = c // ctx.num_groups
+        n = r * cg
+        _, var = group_moments(sums, r, ctx.num_groups)
+        inv = inv_c[:, ::cg]
+        gm = g_mean.reshape(b, ctx.num_groups, cg).sum(-1) / n
+        gi = g_inv.reshape(b, ctx.num_groups, cg).sum(-1) * inv**3 * (var >= 0) / n
+        gm, gi = (t.repeat_interleave(cg, dim=1)[:, None] for t in (gm, gi))
+        dx = gm - gi * (x.float() - mean_c[:, None])
+        return dx.to(x.dtype), None, None
+
+
 class GroupNorm32(nn.Module):
     """GroupNorm(32) in an fp32 island, ChanStatsGroupNorm form, no
     activation: the AttentionBlock's `norm` (nshmc_tpu/models/unet.py:212;
     eps 1e-6 in the VQ autoencoder's AttnBlock). Parameter names match the
-    reference's GroupNorm32 (weight, bias)."""
+    reference's GroupNorm32 (weight, bias). The statistics come from
+    `group_stats` through `_GroupStats`; the affine after them is plain
+    torch, as in JAX."""
 
     def __init__(self, channels: int, eps: float = EPS):
         super().__init__()
@@ -65,7 +97,7 @@ class GroupNorm32(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
         x3 = nhwc(x).reshape(b, h * w, c)
-        mean_c, inv_c = group_combine(channel_stats_plain(x3), h * w, NUM_GROUPS, self.eps)
+        mean_c, inv_c = _GroupStats.apply(x3, NUM_GROUPS, self.eps)
         y = (x3.float() - mean_c[:, None]) * inv_c[:, None] * self.weight + self.bias
         return nchw(y.to(x.dtype).reshape(b, h, w, c))
 

@@ -11,23 +11,25 @@ scale-shift `out_norm` sites: the affine is per (batch, channel), so
 scale = gamma * (1 + s) and bias = beta * (1 + s) + shift cover
 `GN -> h * (1 + s) + shift -> SiLU` with the same kernel.
 
-Hopper translation (Triton, launched only for CUDA tensors):
-  - Bound: bytes. The stats pass reads x once; the apply pass reads x and
-    writes y once (268 MB at (8, 256*256, 128) bf16, ~80 us at 3.35 TB/s);
-    neither does tensor-core work.
-  - Blocks run in parallel in no order, so the TPU's sequential accumulation
-    across grid steps becomes a deterministic two-level reduction: each
-    program writes the fp32 sums of its own row range (no float atomics,
-    so the result is the same on every run), torch adds the partials and
-    does the group combine (var = max(E[x^2] - E[x]^2, 0), eps 1e-5 in the
-    U-Net, 1e-6 in the VQ autoencoder), then the apply
-    kernel streams x once more.
-  - Each program loads 2-D (rows, 128-channel) tiles: a row of a
-    channels-last tensor is C contiguous values, so loads are coalesced.
+Hopper translation (launched only for CUDA tensors). Both halves are
+bound by bytes and do no tensor-core work:
+  - K2a and the group combine, `group_stats`: ONE launch of the CUDA kernel
+    csrc/groupnorm_stats.cu reads x once and writes the per-channel
+    [sum x, sum x^2] and the channel-expanded mean and rsqrt(var + eps)
+    (var = max(E[x^2] - E[x]^2, 0); eps 1e-5 in the U-Nets, 1e-6 in the VQ
+    autoencoder). Blocks run in parallel in no order, so the TPU's
+    sequential accumulation across grid steps becomes slab partials that
+    the last CTA of each batch element adds in slab order (no float
+    atomics: the same bits on every run); `stats_plan` cuts the call. See
+    the source's header for the design.
+  - K2b, `normalize_silu`: a Triton kernel streams x once more and writes
+    y; each program loads 2-D (rows, 128-channel) tiles, so loads are
+    coalesced (268 MB at (8, 256*256, 128) bf16, ~80 us at 3.35 TB/s).
 
-`channel_stats` and `normalize_silu` are the wrappers: CUDA tensor ->
-Triton kernel (counted in `.launches`), CPU tensor -> the plain version,
-anything else raises. `groupnorm_silu` is the `torch.autograd.Function`.
+`group_stats` (and `channel_stats`, its sums alone, sharing its launch
+count) and `normalize_silu` are the wrappers: CUDA tensor -> the kernel
+(counted in `.launches`), CPU tensor -> the plain version, anything else
+raises. `groupnorm_silu` is the `torch.autograd.Function`.
 Its forward saves x and the (B, C) fp32 statistics K2a produced; its
 backward is the closed-form gradient of the function (the one `_gn_bwd`,
 nshmc_tpu/ops/groupnorm.py:150, gets by differentiating
@@ -52,41 +54,17 @@ from . import _build
 
 NUM_GROUPS = 32
 EPS = 1e-5
-_TILE = 8192        # elements per program tile
-_STATS_PROGRAMS = 1024  # target programs in the stats grid
+_TILE = 8192        # elements per program tile of the apply kernel
 
 
 @functools.lru_cache(maxsize=None)
 def _kernels():
-    """Define the Triton kernels at first launch (no triton on CPU hosts).
+    """Define the Triton apply kernel K2b at first launch (no triton on CPU hosts).
     Triton's compile cache goes beside the CUDA builds unless the caller
     chose another place."""
     os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(_build.BUILD_DIR, "triton"))
     import triton
     import triton.language as tl
-
-    @triton.jit
-    def stats_kernel(x_ptr, part_ptr, R, C, rows_per_prog, n_rb,
-                     BLOCK_R: tl.constexpr, BLOCK_C: tl.constexpr):
-        rb = tl.program_id(0)
-        cb = tl.program_id(1)
-        b = tl.program_id(2).to(tl.int64)
-        cols = cb * BLOCK_C + tl.arange(0, BLOCK_C)
-        cmask = cols < C
-        acc = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        acc2 = tl.zeros((BLOCK_R, BLOCK_C), tl.float32)
-        row0 = rb * rows_per_prog
-        xb = x_ptr + b * R * C
-        for r in range(0, rows_per_prog, BLOCK_R):
-            rows = row0 + r + tl.arange(0, BLOCK_R)
-            mask = (rows < R)[:, None] & cmask[None, :]
-            x = tl.load(xb + rows[:, None].to(tl.int64) * C + cols[None, :],
-                        mask=mask, other=0.0).to(tl.float32)
-            acc += x
-            acc2 += x * x
-        out = part_ptr + ((b * n_rb + rb) * 2) * C
-        tl.store(out + cols, tl.sum(acc, axis=0), mask=cmask)
-        tl.store(out + C + cols, tl.sum(acc2, axis=0), mask=cmask)
 
     @triton.jit
     def apply_kernel(x_ptr, y_ptr, mean_ptr, inv_ptr, scale_ptr, bias_ptr,
@@ -110,7 +88,7 @@ def _kernels():
         y = y * tl.sigmoid(y)
         tl.store(y_ptr + offs, y.to(y_ptr.dtype.element_ty), mask=mask)
 
-    return triton, stats_kernel, apply_kernel
+    return triton, apply_kernel
 
 
 def _blocks(c: int):
@@ -131,7 +109,18 @@ def _check_cuda(x: torch.Tensor, what: str):
 
 
 # --------------------------------------------------------------------------
-# stats: (B, R, C) -> (B, 2, C) fp32 [sum x, sum x^2] per channel (K2a)
+# stats: (B, R, C) -> (B, 2, C) fp32 [sum x, sum x^2] per channel (K2a) and the
+# group combine's channel-expanded (mean, rsqrt(var + eps)), in one launch of
+# csrc/groupnorm_stats.cu
+
+STATS_THREADS = 256     # csrc/groupnorm_stats.cu THREADS: a CTA's threads
+STATS_MAX_C = 2048      # csrc/groupnorm_stats.cu MAX_C
+STATS_MAX_G = 256       # csrc/groupnorm_stats.cu MAX_G
+STATS_UNROLL = 8        # csrc/groupnorm_stats.cu UNROLL: 16-byte loads a thread keeps in flight
+# the CTAs an SM the slabs aim at (scripts/groupnorm_stats_variants.py times 4
+# beside it on the card: 2 is faster at most sites, where fewer slabs shorten
+# the last CTA's finish and the kernel's two blocks an SM run in one wave)
+STATS_CTAS_PER_SM = 2
 
 
 def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
@@ -139,30 +128,14 @@ def channel_stats_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([xf.sum(dim=1), (xf * xf).sum(dim=1)], dim=1)
 
 
-def channel_stats(x: torch.Tensor) -> torch.Tensor:
-    if x.device.type == "cpu":
-        return channel_stats_plain(x)
-    if x.device.type != "cuda":
-        raise ValueError(f"channel_stats: unsupported device {x.device}")
-    _check_cuda(x, "channel_stats")
-    b, r, c = x.shape
-    triton, stats_kernel, _ = _kernels()
-    block_c, block_r = _blocks(c)
-    n_cb = triton.cdiv(c, block_c)
-    row_tiles = triton.cdiv(r, block_r)
-    per_bc = max(1, min(row_tiles, triton.cdiv(_STATS_PROGRAMS, b * n_cb)))
-    rows_per_prog = triton.cdiv(row_tiles, per_bc) * block_r
-    n_rb = triton.cdiv(r, rows_per_prog)
-    part = torch.empty((b, n_rb, 2, c), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stats_kernel[(n_rb, n_cb, b)](x, part, r, c, rows_per_prog, n_rb,
-                                      BLOCK_R=block_r, BLOCK_C=block_c,
-                                      num_warps=8)
-    channel_stats.launches += 1
-    return part.sum(dim=1)
-
-
-channel_stats.launches = 0
+def group_moments(stats: torch.Tensor, rows: int, num_groups: int = NUM_GROUPS):
+    """(B, 2, C) channel sums -> (mean, E[x^2] - mean^2) per group, each
+    (B, groups) fp32, the variance before the clip."""
+    b, _, c = stats.shape
+    cg = c // num_groups
+    n = rows * cg
+    mean = stats[:, 0].reshape(b, num_groups, cg).sum(-1) / n
+    return mean, stats[:, 1].reshape(b, num_groups, cg).sum(-1) / n - mean**2
 
 
 def group_combine(stats: torch.Tensor, rows: int, num_groups: int = NUM_GROUPS,
@@ -173,16 +146,159 @@ def group_combine(stats: torch.Tensor, rows: int, num_groups: int = NUM_GROUPS,
     (the VQ autoencoder's norms): a group with a large mean and a small
     spread can round E[x^2] - E[x]^2 below 0, where rsqrt(var + eps) would
     be NaN at eps 1e-6."""
-    b, _, c = stats.shape
-    cg = c // num_groups
-    n = rows * cg
-    g_sum = stats[:, 0].reshape(b, num_groups, cg).sum(-1)
-    g_sum2 = stats[:, 1].reshape(b, num_groups, cg).sum(-1)
-    mean = g_sum / n
-    var = torch.clamp(g_sum2 / n - mean**2, min=0.0)
-    inv = torch.rsqrt(var + eps)
+    cg = stats.shape[2] // num_groups
+    mean, var = group_moments(stats, rows, num_groups)
+    inv = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
     return (mean.repeat_interleave(cg, dim=1).contiguous(),
             inv.repeat_interleave(cg, dim=1).contiguous())
+
+
+def group_stats_plain(x: torch.Tensor, num_groups: int = NUM_GROUPS, eps: float = EPS):
+    """K2a's plain version: (sums (B, 2, C), mean_c, inv_c (B, C)), fp32."""
+    sums = channel_stats_plain(x)
+    return (sums, *group_combine(sums, x.shape[1], num_groups, eps))
+
+
+@dataclasses.dataclass(frozen=True)
+class StatsPlan:
+    """How csrc/groupnorm_stats.cu cuts a (B, R, C) call: a row of C / VEC
+    16-byte vectors into `n_cb` channel blocks of `cbv` vectors (the last
+    may be narrower), whose CTA reads `rows_per_pass` rows at a time; the R
+    rows into `slabs` slabs, slab s holding rows s R / slabs to (s + 1) R /
+    slabs. Grid (slabs, n_cb, B): `ctas` CTAs, of which the last of each
+    batch element to finish adds that element's slabs in slab order."""
+    cbv: int
+    n_cb: int
+    rows_per_pass: int
+    slabs: int
+    ctas: int
+
+    def slab_rows(self, r: int, s: int) -> range:
+        """The rows of slab s."""
+        return range(s * r // self.slabs, (s + 1) * r // self.slabs)
+
+
+@functools.lru_cache(maxsize=None)
+def stats_plan(b: int, r: int, c: int, elem_size: int, sms: int,
+               ctas_per_sm: int = STATS_CTAS_PER_SM) -> StatsPlan:
+    """The plan of K2a for x: (b, r, c) of `elem_size` bytes on a card with
+    `sms` SMs: channel blocks of at most 256 vectors, as even as they come;
+    then as many slabs as give `ctas_per_sm` CTAs an SM, every SM the same
+    number, but no slab shorter than one unrolled pass (STATS_UNROLL loads
+    of `rows_per_pass` rows)."""
+    cv = c // (16 // elem_size)
+    n_cb = _cdiv(cv, STATS_THREADS)
+    cbv = _cdiv(cv, n_cb)
+    rpi = STATS_THREADS // cbv
+    want = _cdiv(ctas_per_sm * sms, b * n_cb)  # slabs wanted per (batch, channel block)
+    slabs = max(1, min(want, r // (rpi * STATS_UNROLL)))
+    return StatsPlan(cbv=cbv, n_cb=n_cb, rows_per_pass=rpi, slabs=slabs, ctas=b * n_cb * slabs)
+
+
+def declare_stats(fn):
+    """`nshmc_gn_stats` of a loaded library, its C signature declared."""
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float]
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _stats_launcher():
+    """The C launcher of csrc/groupnorm_stats.cu, built and loaded at first use."""
+    return declare_stats(_build.load("groupnorm_stats.cu").nshmc_gn_stats)
+
+
+_stats_counter_bufs: dict = {}
+
+
+def _stats_counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's int32 arrival counters for K2a, one a batch element:
+    zeroed once, left zero by every launch; grown (a new zeroed buffer) only
+    when a call needs more. Apart from K2c's (`_bwd_counters`)."""
+    buf = _stats_counter_bufs.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _stats_counter_bufs[device] = buf
+    return buf
+
+
+def launch_stats(x: torch.Tensor, plan: StatsPlan, num_groups: int = NUM_GROUPS,
+                 eps: float = EPS, launcher=None):
+    """One launch of csrc/groupnorm_stats.cu (or of `launcher`, a declared
+    copy of its C launcher) on `plan`, for x the wrapper has checked;
+    counts no launch. Returns (sums, mean_c, inv_c)."""
+    b, r, c = x.shape
+    part = torch.empty((b, plan.slabs, 2, c), dtype=torch.float32, device=x.device)
+    sums = torch.empty((b, 2, c), dtype=torch.float32, device=x.device)
+    mean_c = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    inv_c = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    counters = _stats_counters(x.device, b)
+    with torch.cuda.device(x.device):
+        rc = (launcher or _stats_launcher())(
+            x.data_ptr(), part.data_ptr(), sums.data_ptr(), mean_c.data_ptr(), inv_c.data_ptr(),
+            counters.data_ptr(), 1 if x.dtype == torch.bfloat16 else 0, b, r, c, num_groups,
+            eps, plan.cbv, plan.n_cb, plan.slabs, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(rc, "nshmc_gn_stats")
+    return sums, mean_c, inv_c
+
+
+class _K2aWrapper:
+    """K2a's two wrappers, `group_stats` and `channel_stats`, count the same
+    launches: reading or setting `.launches` on either reads or sets one
+    number."""
+    _count = 0
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._fn = fn
+
+    def __call__(self, *args, **kwargs):
+        return self._fn(*args, **kwargs)
+
+    @property
+    def launches(self) -> int:
+        return _K2aWrapper._count
+
+    @launches.setter
+    def launches(self, value: int):
+        _K2aWrapper._count = value
+
+
+@_K2aWrapper
+def group_stats(x: torch.Tensor, num_groups: int = NUM_GROUPS, eps: float = EPS):
+    """K2a with the group combine: x (B, R, C) -> (sums (B, 2, C), mean_c,
+    inv_c (B, C)), all fp32. A CUDA tensor launches csrc/groupnorm_stats.cu
+    once (counted in `.launches`), a CPU tensor takes `group_stats_plain`,
+    anything else raises. Calls on one device share its arrival counters,
+    so they must not run concurrently on two streams."""
+    if x.device.type == "cpu":
+        return group_stats_plain(x, num_groups, eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"group_stats: unsupported device {x.device}")
+    _check_cuda(x, "group_stats")
+    b, r, c = x.shape
+    if c % 8 or c % num_groups or c > STATS_MAX_C or num_groups > STATS_MAX_G:
+        raise ValueError(f"group_stats: C = {c} must be a multiple of 8 and of {num_groups} "
+                         f"groups, at most {STATS_MAX_C}, with at most {STATS_MAX_G} groups")
+    if r * (c // num_groups) >= 1 << 24:
+        raise ValueError(f"group_stats: {r} rows x {c // num_groups} channels a group is not "
+                         f"an exact fp32 count")
+    if x.data_ptr() % 16:
+        raise ValueError("group_stats: x must be 16-byte aligned")
+    plan = stats_plan(b, r, c, x.element_size(), _sm_count(x.device.index or 0))
+    out = launch_stats(x, plan, num_groups, eps)
+    group_stats.launches += 1
+    return out
+
+
+@_K2aWrapper
+def channel_stats(x: torch.Tensor) -> torch.Tensor:
+    """K2a's per-channel sums (B, 2, C) fp32: on the card, the sums of
+    `group_stats`' launch (its count); on the CPU, the plain version."""
+    if x.device.type == "cpu":
+        return channel_stats_plain(x)
+    return group_stats(x)[0]
 
 
 # --------------------------------------------------------------------------
@@ -214,7 +330,7 @@ def normalize_silu(x, mean_c, inv_c, scale, bias):
     mean_c, inv_c = mean_c.contiguous(), inv_c.contiguous()
     scale = scale.float().contiguous()
     bias = bias.float().contiguous()
-    triton, _, apply_kernel = _kernels()
+    triton, apply_kernel = _kernels()
     block_c, block_r = _blocks(c)
     y = torch.empty_like(x)
     grid = (triton.cdiv(r, block_r), triton.cdiv(c, block_c), b)
@@ -617,7 +733,7 @@ class _GroupNormSiLU(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, num_groups, eps):
         x3 = _as_rows(x).contiguous()
-        mean_c, inv_c = group_combine(channel_stats(x3), x3.shape[1], num_groups, eps)
+        _, mean_c, inv_c = group_stats(x3, num_groups, eps)
         ctx.save_for_backward(x3, scale, bias, mean_c, inv_c)
         ctx.num_groups = num_groups
         return normalize_silu(x3, mean_c, inv_c, scale, bias).reshape(x.shape)

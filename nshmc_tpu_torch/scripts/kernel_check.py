@@ -1,9 +1,11 @@
-"""Hold the main path's CUDA kernels K1 (attention) and K2c (GroupNorm+SiLU
-backward) against their plain versions on the card, without timing them.
+"""Hold the main path's CUDA kernels K1 (attention), K2a (GroupNorm
+statistics) and K2c (GroupNorm+SiLU backward) against their plain versions
+on the card, without timing them.
 
     python -m nshmc_tpu_torch.scripts.kernel_check
 
-It builds csrc/attention.cu and csrc/groupnorm_bwd.cu, prints each
+It builds csrc/attention.cu, csrc/groupnorm_bwd.cu and
+csrc/groupnorm_stats.cu, prints each
 kernel's registers, spills and shared memory (nvcc -Xptxas -v), then
 checks, on seeded random inputs:
   - K1 at the flagship's attention shapes (8, 256, 8, 64) and (8, 64, 8, 64),
@@ -16,6 +18,9 @@ checks, on seeded random inputs:
     GN+SiLU shapes (FLAGSHIP_GN_SITES) and at GN_SHAPES (smaller and ragged
     ones), in bf16 and f32, with a (C,) and a (B, C) affine; each case also
     calls the design twice and requires bit-identical dx, dscale and dbias;
+  - K2a (`group_stats`, one launch) at every K2a site of the three paths
+    and GN_SHAPES (STATS_CASES: the GN+SiLU and GroupNorm32 sites, each at
+    its eps), in bf16 and f32, and the variance clip at eps 1e-6;
   - K2c at the latent path's GN+SiLU shapes (LATENT_GN_SITES: the VQ
     decoder's at eps 1e-6, the latent U-Net's, with 7 to 56 channels a
     group): each design that can take the call, and the wrapper, which cuts
@@ -49,6 +54,16 @@ Tolerances, with reasons:
   - K2c dx f32: 1e-4 absolute (dx is O(1) on these inputs).
   - K2c dscale, dbias: 1e-5 x max|ref|, fp32 sums of R values in another
     order (the stats kernels' bar).
+  - K2a sums: 1e-5 x max|sum|, fp32 sums of R values in another order.
+  - K2a mean_c within 1e-5 / inv_c (a hundred-thousandth of the group's
+    standard deviation) and inv_c within 1e-5 relative of `group_combine`
+    applied to the launch's own sums: the two add a group's <= 56 channel
+    sums in other orders (each within 55 * 2^-24 of the sum of their
+    magnitudes; E[x^2] - E[x]^2 passes that on to inv_c scaled by
+    E[x^2] / var, ~1 on these inputs), and rsqrtf is within 2 ulp.
+    Downstream, the GN+SiLU forward through the launch and K2b is held to
+    K2b's bars: f32 1e-4 absolute, bf16 2^-7 |y| + 1e-3 (one bf16 rounding).
+  - K2a's variance clip: finiteness only (see `gn_clip_check`).
 """
 from __future__ import annotations
 
@@ -62,7 +77,7 @@ from ..ops import attention as attn
 from ..ops import groupnorm as gn
 from ._bench import card, resolve_device
 
-SOURCES = ("attention.cu", "groupnorm_bwd.cu")
+SOURCES = ("attention.cu", "groupnorm_bwd.cu", "groupnorm_stats.cu")
 # the latent U-Net's attention blocks (configs/ffhq_latent.yaml, 8 chains):
 # (B, T, heads, ch) at ds 2, 4, 8 -> blocks a forward
 LATENT_ATTN_SITES = {(8, 1024, 14, 32): 5, (8, 256, 21, 32): 5, (8, 64, 28, 32): 6}
@@ -93,30 +108,48 @@ LATENT_UNET_GN_SITES = {(8, 4096, 224): 8, (8, 4096, 448): 2, (8, 4096, 672): 1,
                         (8, 64, 672): 1, (8, 64, 896): 10, (8, 64, 1568): 1, (8, 64, 1792): 2}
 LATENT_GN_SITES = {"vq_decoder": (1e-6, VQ_DECODER_GN_SITES),
                    "latent_unet": (1e-5, LATENT_UNET_GN_SITES)}
+# the GroupNorm32 sites (an attention block's norm, no SiLU: K2a alone), (B,
+# rows, C) -> sites a forward: the flagship U-Net's at ds16 and ds32, the
+# latent U-Net's at ds 2, 4, 8 (eps 1e-5), the VQ decoder's mid-block
+# AttnBlock (eps 1e-6)
+FLAGSHIP_NORM_SITES = {(8, 256, 512): 3, (8, 64, 512): 1}
+LATENT_UNET_NORM_SITES = {(8, 1024, 448): 5, (8, 256, 672): 5, (8, 64, 896): 6}
+VQ_DECODER_NORM_SITES = {(8, 4096, 512): 1}
+# every (shape, eps) at which K2a runs on the three paths, and GN_SHAPES
+STATS_CASES = list(dict.fromkeys(
+    [(s, 1e-5) for s in [*FLAGSHIP_GN_SITES, *FLAGSHIP_NORM_SITES, *GN_SHAPES]]
+    + [(s, 1e-6) for s in [*VQ_DECODER_GN_SITES, *VQ_DECODER_NORM_SITES]]
+    + [(s, 1e-5) for s in [*LATENT_UNET_GN_SITES, *LATENT_UNET_NORM_SITES]]))
 GN_BWD_DESIGNS = {"one_launch": gn.launch_one, "twopass": gn.launch_twopass}
 AFFINE_FORMS = ("per_channel", "per_batch_channel")
 
 
 def count_sites(root: torch.nn.Module, fn):
-    """Run fn() with forward hooks on every GroupNorm+SiLU and U-Net
-    attention block under `root`: ({(B, rows, C): GN+SiLU sites},
-    {(B, T, heads, ch): attention blocks})."""
-    from ..models.nn import GroupNormSiLU
+    """Run fn() with forward hooks on every GroupNorm+SiLU, GroupNorm32 and
+    U-Net attention block under `root`: ({(B, rows, C): GN+SiLU calls},
+    {(B, T, heads, ch): attention blocks}, {(B, rows, C): GroupNorm32
+    calls}). A module that activation checkpointing runs again counts
+    again."""
+    from ..models.nn import GroupNorm32, GroupNormSiLU
     from ..models.unet import AttentionBlock
 
-    gn_sites, attn_sites = {}, {}
+    gn_sites, attn_sites, norm_sites = {}, {}, {}
 
-    def gn_hook(mod, args, out):
-        key = (args[0].shape[0], args[0].shape[2] * args[0].shape[3], args[0].shape[1])
-        gn_sites[key] = gn_sites.get(key, 0) + 1
+    def counter(sites):
+        def hook(mod, args, out):
+            key = (args[0].shape[0], args[0].shape[2] * args[0].shape[3], args[0].shape[1])
+            sites[key] = sites.get(key, 0) + 1
+        return hook
 
     def attn_hook(mod, args, out):
         b, c, hh, ww = args[0].shape
         key = (b, hh * ww, mod.heads, c // mod.heads)
         attn_sites[key] = attn_sites.get(key, 0) + 1
 
-    hooks = [m.register_forward_hook(gn_hook) for m in root.modules()
+    hooks = [m.register_forward_hook(counter(gn_sites)) for m in root.modules()
              if isinstance(m, GroupNormSiLU)]
+    hooks += [m.register_forward_hook(counter(norm_sites)) for m in root.modules()
+              if isinstance(m, GroupNorm32)]
     hooks += [m.register_forward_hook(attn_hook) for m in root.modules()
               if isinstance(m, AttentionBlock)]
     try:
@@ -124,7 +157,7 @@ def count_sites(root: torch.nn.Module, fn):
     finally:
         for h in hooks:
             h.remove()
-    return gn_sites, attn_sites
+    return gn_sites, attn_sites, norm_sites
 
 
 def build_reports() -> dict:
@@ -206,6 +239,78 @@ def gn_inputs(shape, dtype, form, gen, device, eps=gn.EPS):
     return x, g, mean_c, inv_c, scale, bias
 
 
+STATS_TOL = ("sums 1e-5 max|sum|; mean_c 1e-5 / inv_c, inv_c 1e-5 inv_c; GN+SiLU f32 1e-4, "
+             "bf16 2^-7 |y| + 1e-3")
+
+
+def gn_stats_check(x, num_groups=gn.NUM_GROUPS, eps=gn.EPS, gen=None):
+    """K2a's one launch (`group_stats`) at x against its plain version (see
+    the module note for the bars): the sums against `channel_stats_plain`;
+    mean_c and inv_c against `group_combine` of the kernel's own sums; the
+    whole GN+SiLU forward (the launch and K2b) against
+    `groupnorm_silu_plain` with a seeded (B, C) affine; a second launch
+    against the first. {ok, sums_abs, sums_rel, mean_err, inv_rel, apply_err,
+    same_bits, tolerance}."""
+    b, r, c = x.shape
+    sums, mean_c, inv_c = gn.group_stats(x, num_groups, eps)
+    again = gn.group_stats(x, num_groups, eps)
+    ref = gn.channel_stats_plain(x)
+    sums_abs = float((sums - ref).abs().max())
+    sums_rel = sums_abs / float(ref.abs().max())
+    m_ref, i_ref = gn.group_combine(sums, r, num_groups, eps)
+    mean_err = float(((mean_c - m_ref).abs() * i_ref).max())
+    inv_rel = float(((inv_c - i_ref).abs() / i_ref).max())
+    scale = 1 + 0.3 * torch.randn((b, c), generator=gen, device=x.device)
+    bias = 0.3 * torch.randn((b, c), generator=gen, device=x.device)
+    y = gn.groupnorm_silu(x, scale, bias, num_groups, eps).float()
+    y_ref = gn.groupnorm_silu_plain(x, scale, bias, num_groups, eps).float()
+    diff = (y - y_ref).abs()
+    tol = 1e-4 if x.dtype == torch.float32 else 2 ** -7 * y_ref.abs() + 1e-3
+    same = all(torch.equal(u, v) for u, v in zip((sums, mean_c, inv_c), again))
+    ok = (sums_rel <= 1e-5 and mean_err <= 1e-5 and inv_rel <= 1e-5
+          and bool((diff <= tol).all()) and same)
+    return {"ok": ok, "sums_abs": sums_abs, "sums_rel": sums_rel, "mean_err": mean_err,
+            "inv_rel": inv_rel, "apply_err": float(diff.max()), "same_bits": same,
+            "tolerance": STATS_TOL}
+
+
+def clip_inputs(shape, dtype, device):
+    """Groups with a large mean and a tiny spread (seeded): in f32 group g
+    at 300.3 + 4g with a spread of 1e-3; in bf16 at 300 + 2g, one value in
+    2,000 a bf16 step (2) above. E[x^2] - E[x]^2 is then a rounding error
+    of the fp32 sums and falls below 0 in some groups, where rsqrt(var +
+    eps) without the clip is NaN."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    cg = shape[2] // gn.NUM_GROUPS
+    g = torch.arange(gn.NUM_GROUPS, device=device).repeat_interleave(cg).float()
+    if dtype == torch.float32:
+        return 300.3 + 4 * g + 1e-3 * torch.randn(shape, generator=gen, device=device)
+    step = (torch.rand(shape, generator=gen, device=device) < 5e-4).float()
+    return (300 + 2 * g + 2 * step).to(dtype)
+
+
+def gn_clip_check(dtype, device, shape=(8, 4096, 512), eps=1e-6):
+    """The variance clip at eps 1e-6 on `clip_inputs`, at the VQ decoder's
+    (8, 4096, 512). Only finiteness is asserted: the true variances lie far
+    below the rounding of the fp32 sums, so no two orders of summation need
+    agree on them. {ok, finite, negative_groups}: ok needs finite mean_c
+    and inv_c and at least one group whose variance from the launch's own
+    sums is below 0 (the clip was exercised)."""
+    x = clip_inputs(shape, dtype, device)
+    sums, mean_c, inv_c = gn.group_stats(x, gn.NUM_GROUPS, eps)
+    finite = bool(torch.isfinite(mean_c).all() and torch.isfinite(inv_c).all())
+    negative = int((gn.group_moments(sums, shape[1])[1] < 0).sum())
+    return {"ok": finite and negative > 0, "finite": finite, "negative_groups": negative}
+
+
+def stats_summary(res) -> str:
+    """One line of a gn_stats_check result."""
+    return (f"sums rel {res['sums_rel']:.2e}, mean {res['mean_err']:.2e}, inv rel "
+            f"{res['inv_rel']:.2e}, GN+SiLU {res['apply_err']:.2e}, two calls "
+            f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
+            f"{'ok' if res['ok'] else 'DISAGREES'}")
+
+
 def gn_backward_agreement(got, want):
     """(dx, dscale, dbias) against the plain version's under the K2c
     tolerance (see the module note): {dx_err, affine_rel_err, ok, tolerance}."""
@@ -270,6 +375,18 @@ def main() -> int:
                           f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
                           f"{'ok' if res['ok'] else 'DISAGREES'}")
                     bad += [] if res["ok"] else [("K2c", design, shape, dt, form)]
+    for shape, eps in STATS_CASES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (1.5 * torch.randn(shape, generator=gen, device=dev) + 0.3).to(dt)
+            res = gn_stats_check(x, gn.NUM_GROUPS, eps, gen)
+            print(f"K2a {shape} {dt} eps {eps:g}: {stats_summary(res)}")
+            bad += [] if res["ok"] else [("K2a", shape, dt, eps)]
+    for dt in (torch.bfloat16, torch.float32):
+        res = gn_clip_check(dt, dev)
+        print(f"K2a clip case (8, 4096, 512) {dt} eps 1e-6: mean_c, inv_c finite "
+              f"{res['finite']}, {res['negative_groups']} groups below 0 before the clip: "
+              f"{'ok' if res['ok'] else 'FAILS'}")
+        bad += [] if res["ok"] else [("K2a clip", dt)]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for part, (eps, sites) in LATENT_GN_SITES.items():
         for shape in sites:

@@ -11,7 +11,7 @@ formulations on a channels-last (B, R, R, C) bf16 activation, default
   gn_chan_fwd        per-channel sum/sumsq + O(B*C) group combine
   gn_chan_dot_fwd    the same with the sums as matrix products
   gn_*_vjp           the input gradient of sum(SiLU(GN(x))) per formulation, by autograd
-  kernel_fwd         the port's K2 forward (Triton stats + apply, ops/groupnorm.py)
+  kernel_fwd         the port's K2 forward (K2a's CUDA launch + Triton apply, ops/groupnorm.py)
   kernel_vjp         the port's `groupnorm_silu` autograd.Function, forward and
                      backward: the formulation the port's U-Net runs
 

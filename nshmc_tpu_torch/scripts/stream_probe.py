@@ -2,7 +2,8 @@
 
 Port of `scripts/pallas_stream_probe.py` (`main()` and `extra_probes()`):
 the four probe kernels P1-P4 (`ops/stream_probe.py`, CUDA C++), the port's
-Triton GroupNorm kernels (K2) and plain PyTorch, each reading the same
+GroupNorm kernels (K2a's one CUDA launch, K2b in Triton) and plain PyTorch,
+each reading the same
 134 MB input, which is larger than the 50 MB L2, so every call reads it
 from device memory.
 
@@ -103,13 +104,13 @@ def cases(x, scale, bias) -> dict:
         m, i = gn.group_combine(sp.probe_stats(x), r)
         return sp.probe_apply(x, m, i, scale, bias)
 
-    def triton_gn_fwd():
+    def kernel_gn_fwd():
         with torch.no_grad():
             return gn.groupnorm_silu(x, scale, bias)
 
     return {
         "torch_stats": (lambda: gn.channel_stats_plain(x), nb),
-        "triton_stats": (lambda: gn.channel_stats(x), nb),
+        "k2a_stats": (lambda: gn.channel_stats(x), nb),
         "cuda_stats": (lambda: sp.probe_stats(x), nb),
         "cuda_mma_stats": (lambda: sp.probe_mma_stats(x), nb),
         "torch_matmul_stats": (lambda: matmul_stats(x), nb),
@@ -117,7 +118,7 @@ def cases(x, scale, bias) -> dict:
         "torch_apply": (lambda: gn.normalize_silu_plain(x, mean_c, inv_c, scale, bias), 2 * nb),
         "cuda_apply": (lambda: sp.probe_apply(x, mean_c, inv_c, scale, bias), 2 * nb),
         "torch_gn_fwd": (lambda: gn.groupnorm_silu_plain(x, scale, bias), 3 * nb),
-        "triton_gn_fwd": (triton_gn_fwd, 3 * nb),
+        "kernel_gn_fwd": (kernel_gn_fwd, 3 * nb),
         "cuda_gn_fwd": (cuda_gn_fwd, 3 * nb),
     }
 

@@ -31,28 +31,33 @@ def _scaled(sites, factor, batch=8):
 
 
 def test_vq_decoder_sites():
-    """The decoder's 23 GN+SiLU sites (ch 128 counted at ch 32)."""
+    """The decoder's 23 GN+SiLU sites and its one GroupNorm32 (ch 128
+    counted at ch 32)."""
     cfg = AutoencoderConfig()  # configs/ffhq_latent.yaml's first stage
     dec = Decoder(dataclasses.replace(cfg, ch=cfg.ch // 4)).eval()
     z = torch.zeros((1, 64, 64, cfg.z_channels))
     with torch.no_grad():
-        gn_sites, attn_sites = kc.count_sites(dec, lambda: dec(z))
+        gn_sites, attn_sites, norm_sites = kc.count_sites(dec, lambda: dec(z))
     assert _scaled(gn_sites, 4) == kc.VQ_DECODER_GN_SITES
+    assert _scaled(norm_sites, 4) == kc.VQ_DECODER_NORM_SITES  # the mid-block AttnBlock
     assert not attn_sites  # its one attention block is the AE's own, not K1's
     elems = sum(b * r * c * n for (b, r, c), n in kc.VQ_DECODER_GN_SITES.items())
     assert elems == 939_524_096  # 0.94 G elements a decode at 8 chains
 
 
 def test_latent_unet_sites():
-    """The latent U-Net's 45 GN+SiLU sites and 16 attention blocks (ch 224
+    """The latent U-Net's 45 GN+SiLU sites and 16 attention blocks, each
+    with a GroupNorm32 (ch 224
     counted at ch 32: heads of 32 channels, so 2, 3, 4 heads for 14, 21,
     28)."""
     cfg = dataclasses.replace(latent_unet_config(), model_channels=32)
     unet = UNetModel(cfg).eval()
     x = torch.zeros((1, 64, 64, 3))
     with torch.no_grad():
-        gn_sites, attn_sites = kc.count_sites(unet, lambda: unet(x, torch.full((1,), 500.0)))
+        gn_sites, attn_sites, norm_sites = kc.count_sites(
+            unet, lambda: unet(x, torch.full((1,), 500.0)))
     assert _scaled(gn_sites, 7) == kc.LATENT_UNET_GN_SITES
+    assert _scaled(norm_sites, 7) == kc.LATENT_UNET_NORM_SITES  # one an attention block
     assert _scaled(attn_sites, 7) == kc.LATENT_ATTN_SITES
     assert set(kc.LATENT_ATTN_SHAPES) <= set(kc.ATTN_SHAPES)
     assert (8, 1024, 8, 32) not in kc.ATTN_SHAPES  # not a shape of any path

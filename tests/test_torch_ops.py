@@ -146,12 +146,13 @@ def test_scale_shift_affine_matches_jax_resblock_out_norm():
 
 def test_cpu_takes_plain_path_and_counts_no_launch():
     counters = (attn_mod.attention_forward, *attn_mod.KERNEL_LAUNCHES.values(),
-                gn_mod.channel_stats, gn_mod.normalize_silu)
+                gn_mod.channel_stats, gn_mod.group_stats, gn_mod.normalize_silu)
     before = [f.launches for f in counters]
     q = torch.randn(1, 64, 2, 16)
     attn_mod.attention(q, q, q)
     attn_mod.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
     gn_mod.groupnorm_silu(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32))
+    gn_mod.group_stats(torch.randn(1, 16, 32))
     assert [f.launches for f in counters] == before
 
 
@@ -164,5 +165,7 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty(1, 16, 32, device="meta")
     with pytest.raises(ValueError):
         gn_mod.channel_stats(x)
+    with pytest.raises(ValueError):
+        gn_mod.group_stats(x)
     with pytest.raises(ValueError):
         gn_mod.normalize_silu(x, x[:, 0], x[:, 0], x[0, 0], x[0, 0])

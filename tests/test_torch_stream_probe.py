@@ -204,7 +204,7 @@ def test_stream_probe_cpu_run(tmp_path, monkeypatch, capsys):
     timed = {ln["case"]: ln for ln in lines if "case" in ln}
     assert set(checks) == {"probe_stats", "probe_mma_stats", "probe_apply", "probe_touch"}
     assert all(c["ok"] for c in checks.values())
-    assert {"torch_stats", "triton_stats", "cuda_stats", "torch_gn_fwd", "triton_gn_fwd",
+    assert {"torch_stats", "k2a_stats", "cuda_stats", "torch_gn_fwd", "kernel_gn_fwd",
             "cuda_gn_fwd", "cuda_dma_read", "cuda_mma_stats"} <= set(timed)
     assert all(v["s_per_iter"] is None and v["eff_gb_s"] is None for v in timed.values())
     assert res["launches"] == {f.__name__: 0 for f in sp.KERNELS}
