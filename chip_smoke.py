@@ -64,12 +64,27 @@ It builds the port's kernels from the sources in this checkout and then:
      VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's, K2a at the
      GroupNorm32 sites), K2b and K2c timed in bf16 and f32, K2c beside the
      F.group_norm + F.silu backward; (e) the
-     CLI, --algo hmc_latent, on configs/ffhq_latent.yaml in f32.
+     CLI, --algo hmc_latent, on configs/ffhq_latent.yaml in f32;
+  8. the forward operators: (a) every degradation (OPERATOR_DEGS) built at
+     256^2 on the card and on the CPU, H, H_pinv, Ht and the input gradient
+     of ||y - H(x)||^2 held card against CPU at the CPU tests' tolerances;
+     (b) one MH attempt (L = 20) of the flagship (the main path's model,
+     bf16, 8 chains) with sr4, deblur_aniso, phase_retrieval and
+     deblur_nonlinear, every kernel count set to 0 just before and read
+     just after: finite start and end energies, the main path's launches an
+     evaluation, K2a's plain versions never; evals/s, peak memory and the
+     operator's own loss and gradient time; (c) the bkse KernelWizard at
+     its full config, random weights, batch 2 at 256^2, adapt_kernel and
+     its input gradient card against CPU in f32 and f64 (the f32 gradient
+     reported with the ReLU inputs whose sign rounding flips, the f64 one
+     held); (d) the CLI with --deg sr4 on configs/ffhq.yaml.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
-{"ok": true, "device": {...}}. With --trace, one flagship evaluation and
-one latent flagship evaluation in bf16 and in f32 are profiled
-(OUT_DIR/trace_main_path.json, trace_latent_path.json,
+{"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
+with each of sr4 and phase_retrieval (and the operator's own loss and
+gradient alone), and one latent flagship evaluation in bf16 and in f32 are
+profiled (OUT_DIR/trace_main_path.json, trace_operator_sr4.json,
+trace_operator_phase_retrieval.json, trace_latent_path.json,
 trace_latent_f32_path.json) and nothing else runs.
 """
 import contextlib
@@ -309,6 +324,16 @@ def attention_case(torch, attn, kc, shape, dt, g, dev):
                 dtype=dname)
 
 
+def device_ms(events):
+    """The device ms of a profile's `key_averages()`: the sum over the
+    kernels' own rows (the operator rows repeat their kernels' time)."""
+    from torch.autograd import DeviceType
+
+    dev_time = lambda e: getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+    return sum(dev_time(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
+
+
 def trace_eval(torch, engine, loss_fn, x, out_dir, name="main_path", what="flagship"):
     """`chip_smoke.py --trace OUT_DIR`: profile one energy+grad evaluation
     (after one untimed) with torch.profiler; print the kernels by device
@@ -323,13 +348,8 @@ def trace_eval(torch, engine, loss_fn, x, out_dir, name="main_path", what="flags
         engine.value_and_grad(loss_fn, x)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
     events = prof.key_averages()
-    dev_time = lambda e: getattr(e, "self_device_time_total", None) or \
-        getattr(e, "self_cuda_time_total", 0)
-    # the kernels' own rows: the operator rows repeat their kernels' time
-    busy_us = sum(dev_time(e) for e in events if e.device_type == DeviceType.CUDA)
+    busy_us = 1e3 * device_ms(events)
     print(f"trace: one {what} energy+grad eval, {x.shape[0]} chains: wall {wall * 1e3:.1f} ms, "
           f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
     print(events.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=70))
@@ -822,6 +842,315 @@ def phase_latent_cli(np):
               f"{time.time() - t0:.1f} s: {attempts[-1].strip()}; {lines[-1]}")
 
 
+# ---- 8. the forward operators --------------------------------------------------------------
+
+OPERATOR_DEGS = ("sr4", "sr16", "sr_bicubic4", "inpaint_box", "deblur_gauss", "deblur_aniso",
+                 "cs2", "color", "denoise", "hdr", "phase_retrieval", "deblur_nonlinear")
+OPERATOR_MH_DEGS = ("sr4", "deblur_aniso", "phase_retrieval", "deblur_nonlinear")
+OPERATOR_TRACE_DEGS = ("sr4", "phase_retrieval")
+# card against CPU, the CPU tests' tolerances (tests/_torch_operator_parity.py):
+# max |card - cpu| <= tol * max |cpu| for the maps; gathers and the HDR clip
+# exact, f32 products and the Walsh-Hadamard ladder 1e-5, FFTs 1e-4; every
+# input gradient 1e-4; the blur network elementwise atol 2e-4 + rtol 1e-3
+OPERATOR_TOL = {"inpaint_box": 0.0, "denoise": 0.0, "hdr": 0.0, "phase_retrieval": 1e-4}
+PRODUCT_TOL, GRAD_TOL, NET_ATOL, NET_RTOL = 1e-5, 1e-4, 2e-4, 1e-3
+
+
+def operator_close(deg, a, b, grad=False):
+    """(ok, measured error, what it is held to) for a card result `a`
+    against the CPU's `b`."""
+    a, b = a.detach().cpu().float(), b.detach().float()
+    err = float((a - b).abs().max())
+    if deg == "deblur_nonlinear":
+        worst = float(((a - b).abs() - NET_RTOL * b.abs()).max())
+        return worst <= NET_ATOL, err, f"atol {NET_ATOL} + rtol {NET_RTOL}"
+    tol = GRAD_TOL if grad else OPERATOR_TOL.get(deg, PRODUCT_TOL)
+    scale = float(b.abs().max())
+    return err <= tol * scale, err / max(scale, 1e-30), f"{tol} max|cpu|"
+
+
+def phase_operators_card_vs_cpu(torch, np, build_operator, d, c):
+    """(a) Every degradation built at 256^2 on the card and on the CPU from
+    the same numpy seed: H, H_pinv of the CPU's y, Ht where the operator
+    has one, and the input gradient of ||y - H(x)||^2 at two chains, the
+    card against the CPU. Fails the run on a disagreement."""
+    rng = np.random.default_rng(SEED + 6)
+    x, x2 = (torch.from_numpy(rng.uniform(-1, 1, (2, c * d * d)).astype(np.float32))
+             for _ in range(2))
+    rows = []
+    for deg in OPERATOR_DEGS:
+        ops = {dev: build_operator(deg, c, d, np.random.default_rng(SEED), device=dev)
+               for dev in ("cpu", "cuda")}
+        res = {}
+        for dev, op in ops.items():
+            with torch.no_grad():
+                y = ops["cpu"].H(x)  # the same measurement on both
+                out = {"H": op.H(x.to(dev)), "H_pinv": op.H_pinv(y.to(dev))}
+                if hasattr(op, "Ht"):
+                    out["Ht"] = op.Ht(y.to(dev))
+                target = ops["cpu"].H(x2).to(dev)
+            xg = x.detach().clone().to(dev).requires_grad_(True)  # a leaf on each device
+            ((target - op.H(xg)) ** 2).sum().backward()
+            out["grad"] = xg.grad
+            res[dev] = out
+        worst = {}
+        for name, ref in res["cpu"].items():
+            ok, err, held = operator_close(deg, res["cuda"][name], ref, name == "grad")
+            check(ok, f"operator {deg} {name}: card vs CPU error {err:.3e}, held to {held}")
+            worst[name] = err
+        rows.append(f"{deg} {type(ops['cuda']).__name__} " + " ".join(
+            f"{k} {v:.1e}" for k, v in worst.items()))
+    print("operators at 256^2, card vs CPU (max |err| / max |cpu|; deblur_nonlinear max "
+          "|err|), all within the CPU tests' tolerances:\n  " + "\n  ".join(rows))
+
+
+def operator_problem(torch, np, engine, decode, deg, x_orig, d, c, hcfg):
+    """The flagship's HMC problem with degradation `deg`: the operator on
+    the card, y0 = H(x) + sigma_0 noise and x_T drawn on the host as the CLI
+    draws them, the pixel loss and the chains."""
+    from nshmc_tpu_torch.cli import host_randn, image_generators
+    from nshmc_tpu_torch.operators import build_operator
+
+    dev = torch.device("cuda")
+    op = build_operator(deg, c, d, np.random.default_rng(SEED), device=dev)
+    host, gen = image_generators(SEED, dev)
+    with torch.no_grad():
+        y0 = op.H_img(x_orig)
+    y0 = y0 + hcfg.sigma_0 * host_randn(y0.shape, host, dev)
+    loss_fn = engine.make_pixel_loss_fn(decode, op, y0[0])
+    state = engine.init_chains(hcfg, CHAINS, (d, d, c), dev,
+                               x=host_randn((CHAINS, d, d, c), host, dev))
+    return op, y0, loss_fn, state, gen
+
+
+def operator_eval(torch, op, y0, x0):
+    """One evaluation's work of the operator alone: ||y0 - H(x0)||^2 and
+    its input gradient at the flagship's 8 decoded images (f32)."""
+    def run():
+        xg = x0.detach().requires_grad_(True)
+        torch.autograd.grad(((y0 - op.H_img(xg)) ** 2).sum(), xg)
+    return run
+
+
+def profiled_device_ms(torch, fn):
+    """Device ms of one call of fn() (after one untimed) under torch.profiler:
+    the sum of its CUDA kernels' device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_ms(prof.key_averages())
+
+
+def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts, x_orig, d,
+                            c, hcfg):
+    """(b) One MH attempt (L = 20, 21 evaluations) at the flagship shape for
+    each degradation of OPERATOR_MH_DEGS, every kernel count set to 0 just
+    before and read just after: finite start and end energies for every
+    chain, the main path's launches an evaluation for every kernel (none
+    depends on H), K2a's plain versions never. `main_counts`: (the main
+    path's launches, its evaluations). Returns {deg: record}."""
+    main_launches, main_evals = main_counts
+    evals = hcfg.n_leapfrog + 1
+    out = {}
+    for deg in OPERATOR_MH_DEGS:
+        op, y0, loss_fn, state, gen = operator_problem(torch, np, engine, decode, deg, x_orig,
+                                                       d, c, hcfg)
+        seen = []
+
+        def recorded(x):
+            loss, dec = loss_fn(x)
+            seen.append(loss.detach())
+            return loss, dec
+
+        for f in (*counters.values(), gn.groupnorm_silu_backward):
+            f.launches = 0
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with plain_calls(gn) as plain:
+            new, log_ratio = engine.hmc_attempt(recorded, hcfg, state, gen)
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k: f.launches for k, f in counters.items()}
+        check(len(seen) == evals, f"{deg}: {len(seen)} evaluations, {evals} expected")
+        start, end = seen[0], seen[-1]
+        check(bool(torch.isfinite(start).all() and torch.isfinite(end).all()
+                   and torch.isfinite(log_ratio).all() and torch.isfinite(new.x).all()),
+              f"{deg}: energies not finite: start {start.tolist()}, end {end.tolist()}, "
+              f"log ratio {log_ratio.tolist()}")
+        check(not any(plain.values()), f"{deg}: K2a's plain versions ran on the card: {plain}")
+        for k, v in launches.items():  # per evaluation, as the inpainting run's
+            check(v * main_evals == main_launches[k] * evals,
+                  f"{deg}: kernel {k} launched {v / evals} times an evaluation, the main "
+                  f"path {main_launches[k] / main_evals}")
+        check(gn.groupnorm_silu_backward.launches == launches["gn_backward"]
+              + launches["gn_backward_twopass"], f"{deg}: K2c calls and launches disagree")
+        with torch.no_grad():
+            x0 = decode(state.x)
+        op_ms = time_ms(operator_eval(torch, op, y0, x0), iters=10, warmup=2)
+        rec = dict(evals_per_s=evals / dt, attempt_s=dt, peak_memory_gb=peak_gb,
+                   allocated_before_gb=base_gb,
+                   operator_eager_ms=op_ms, launches_per_eval={k: v / evals
+                                                               for k, v in launches.items()},
+                   data_loss_start=start.tolist(), data_loss_end=end.tolist(),
+                   accepted=new.accepted.tolist(), n_leapfrog=hcfg.n_leapfrog, chains=CHAINS,
+                   dtype="bfloat16", operator=type(op).__name__)
+        print(f"operator {deg} ({type(op).__name__}): 1 MH attempt x {evals} energy+grad evals, "
+              f"{CHAINS} chains, bf16: {dt:.3f} s, {rec['evals_per_s']:.3f} evals/s (first "
+              f"attempt of this operator), peak memory {peak_gb:.2f} GB ({base_gb:.2f} allocated "
+              f"before it); data loss start "
+              f"{[round(v, 1) for v in start.tolist()]}, end "
+              f"{[round(v, 1) for v in end.tolist()]}, accepted {new.accepted.tolist()}; "
+              f"launches an eval equal the main path's "
+              f"{ {k: v / evals for k, v in launches.items() if v} }; the operator's loss and "
+              f"input gradient alone {op_ms:.3f} ms an evaluation (CUDA events, host included)")
+        out[deg] = rec
+        del op, y0, loss_fn, state, new, x0
+    return out
+
+
+def trace_operators(torch, np, engine, decode, x_orig, d, c, hcfg, trace_dir):
+    """`--trace`: one flagship evaluation with each degradation of
+    OPERATOR_TRACE_DEGS under the profiler (device busy ms, a Chrome trace
+    OUT_DIR/trace_operator_{deg}.json), and the operator's own device ms an
+    evaluation: its loss and input gradient alone, profiled."""
+    for deg in OPERATOR_TRACE_DEGS:
+        op, y0, loss_fn, state, _ = operator_problem(torch, np, engine, decode, deg, x_orig,
+                                                     d, c, hcfg)
+        busy = trace_eval(torch, engine, loss_fn, state.x, trace_dir, f"operator_{deg}",
+                          f"flagship with {deg}")
+        with torch.no_grad():
+            x0 = decode(state.x)
+        own = profiled_device_ms(torch, operator_eval(torch, op, y0, x0))
+        print(f"operator {deg}: device busy {busy:.2f} ms an evaluation, the operator's own "
+              f"device time {own:.3f} ms an evaluation ({100 * own / busy:.2f}% of it)")
+
+
+def kink_signs(torch, net, store):
+    """Forward hooks that append, for every input of a ReLU or LeakyReLU of
+    `net` (a ResidualBlockNoBN's functional relu: its conv1's output), the
+    mask of its positive entries, on the host. Returns the hooks."""
+    from nshmc_tpu_torch.models.kernel_wizard import ResidualBlockNoBN
+
+    record = lambda t: store.append((t > 0).cpu())
+    hooks = []
+    for m in net.modules():
+        if isinstance(m, (torch.nn.ReLU, torch.nn.LeakyReLU)):
+            hooks.append(m.register_forward_hook(lambda mod, args, out: record(args[0])))
+        elif isinstance(m, ResidualBlockNoBN):
+            hooks.append(m.conv1.register_forward_hook(lambda mod, args, out: record(out)))
+    return hooks
+
+
+def phase_kernel_wizard(torch, np):
+    """(c) The bkse KernelWizard at its full config (nf 64, 10 front and 20
+    back resblocks, kernel_dim 512), seeded random weights at the flax
+    initialisers' scales, batch 2 at 256^2: adapt_kernel's forward and its
+    input gradient (a random cotangent), card against CPU, in f32 and in
+    f64 with the same weights. Held: the f32 forward, and the f64 forward
+    and gradient, elementwise to atol 2e-4 + rtol 1e-3. The f32 gradient's
+    relative L2 error is reported beside the count of ReLU inputs whose sign
+    differs between card and CPU: rounding puts some on the other side of
+    their kink, and the CPU tests hold the bkse gradient in f64 for that
+    reason. Returns the record."""
+    from nshmc_tpu_torch.models.kernel_wizard import KernelWizard, KernelWizardConfig
+    from nshmc_tpu_torch.operators.nonlinear_blur import init_like_flax
+
+    t0 = time.time()
+    cfg = KernelWizardConfig()
+    net = KernelWizard(cfg).eval().requires_grad_(False)
+    init_like_flax(net, torch.Generator().manual_seed(SEED + 7))
+    n_params = sum(p.numel() for p in net.parameters())
+    g = torch.Generator().manual_seed(SEED + 8)
+    x = torch.rand((2, 3, 256, 256), generator=g)
+    k = torch.randn((2, cfg.kernel_dim, 2, 2), generator=g) * 1.2
+    w = torch.randn((2, 3, 256, 256), generator=g)
+
+    def run(dev, dtype, signs):
+        net.to(device=dev, dtype=dtype)  # f32 -> f64 is exact: the same weights
+        xg = x.to(dev, dtype).requires_grad_(True)
+        hooks = kink_signs(torch, net, signs)
+        try:
+            out = net.adapt_kernel(xg, k.to(dev, dtype))
+        finally:
+            for h in hooks:
+                h.remove()
+        (grad,) = torch.autograd.grad((out * w.to(dev, dtype)).sum(), xg)
+        return out.detach().cpu().double(), grad.cpu().double()
+
+    res, signs = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        for dev in ("cpu", "cuda"):
+            signs[(dev, dtype)] = []
+            res[(dev, dtype)] = run(dev, dtype, signs[(dev, dtype)])
+    rec = {}
+    for dtype in (torch.float32, torch.float64):
+        (out_c, g_c), (out_g, g_g) = res[("cpu", dtype)], res[("cuda", dtype)]
+        dname = str(dtype).split(".")[1]
+        flips = sum(int((a != b).sum()) for a, b in zip(signs[("cpu", dtype)],
+                                                        signs[("cuda", dtype)]))
+        n_kink = sum(a.numel() for a in signs[("cpu", dtype)])
+        fwd_excess = float(((out_g - out_c).abs() - NET_RTOL * out_c.abs()).max())
+        grad_excess = float(((g_g - g_c).abs() - NET_RTOL * g_c.abs()).max())
+        rec[dname] = dict(forward_max_abs_err=float((out_g - out_c).abs().max()),
+                          grad_max_abs_err=float((g_g - g_c).abs().max()),
+                          grad_rel_l2=float((g_g - g_c).norm() / g_c.norm()),
+                          kink_sign_flips=flips, kink_inputs=n_kink)
+        print(f"bkse KernelWizard, full config ({n_params / 1e6:.1f} M parameters), batch 2, "
+              f"256^2, {dname}, card vs CPU: adapt_kernel max |err| "
+              f"{rec[dname]['forward_max_abs_err']:.2e} (output max |y| "
+              f"{float(out_c.abs().max()):.1f}), input gradient max |err| "
+              f"{rec[dname]['grad_max_abs_err']:.2e} (max |g| {float(g_c.abs().max()):.2f}), "
+              f"relative L2 {rec[dname]['grad_rel_l2']:.2e}; ReLU inputs of other sign on the "
+              f"card {flips} of {n_kink}")
+        check(fwd_excess <= NET_ATOL and bool(torch.isfinite(out_g).all()),
+              f"KernelWizard {dname} forward disagrees with the CPU: {rec[dname]}")
+        check(bool(torch.isfinite(g_g).all()), f"KernelWizard {dname} gradient not finite")
+        if dtype == torch.float64:
+            check(grad_excess <= NET_ATOL, f"KernelWizard f64 input gradient disagrees with "
+                                           f"the CPU: {rec[dname]}")
+    print(f"bkse KernelWizard phase took {time.time() - t0:.1f} s (held: f32 forward, f64 "
+          f"forward and gradient, atol {NET_ATOL} + rtol {NET_RTOL})")
+    del net
+    return rec
+
+
+def phase_cli(np, d, deg):
+    """The port's pixel CLI end to end on configs/ffhq.yaml with --deg `deg`
+    (2 chains, one anneal epoch and one sample): artifacts and the summary
+    line. Phase 5 runs inpainting, phase 8(d) sr4."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        from PIL import Image
+
+        Image.fromarray((synthetic_image(np, d, SEED + 3) * 255).astype(np.uint8)).save(
+            os.path.join(data, "face.png"))
+        cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config",
+               os.path.join(ROOT, "configs", "ffhq.yaml"), "--device", "cuda",
+               "--algo", "hmc", "--deg", deg, "--chains", "2", "--tau", "0.1",
+               "--epsilon", "0.05", "--hmc_epochs", "1", "--hmc_sampling", "1",
+               "--data_path", data, "-i", os.path.join(tmp, "out")]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
+              f"CLI --deg {deg} failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n"
+              f"{r.stderr[-3000:]}")
+        summary = json.loads(lines[-1])["summary"]
+        check(math.isfinite(summary.get("psnr", float("nan"))), f"CLI summary {summary}")
+        for f in ("0.png", "orig_0.png", "y0_0.png", "std_dev_map_0.png", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(tmp, "out", f)), f"CLI --deg {deg} did not write {f}")
+        print(f"CLI --deg {deg} (configs/ffhq.yaml, 2 chains, cuda) in {time.time() - t0:.1f} s: "
+              f"{lines[-1]}")
+
+
 def main():
     args = sys.argv[1:]
     trace_dir = None
@@ -911,6 +1240,7 @@ def main():
 
     if trace_dir is not None:
         trace_eval(torch, engine, loss_fn, state.x, trace_dir)
+        trace_operators(torch, np, engine, decode, x_orig, d, c, hcfg, trace_dir)
         del model, state, loss_fn, decode
         for dt in (torch.bfloat16, torch.float32):
             phase_latent_flagship(torch, np, engine, kc, gn, None, trace_dir, dt)
@@ -932,6 +1262,7 @@ def main():
                 **{f.__name__: f for f in sp.KERNELS}}
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
+    base_gb = torch.cuda.memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     round_s = []
 
@@ -963,7 +1294,8 @@ def main():
     evals_per_s = evals * len(steady) / sum(steady)
     print(f"main path: {len(steps)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
           f"bf16; attempt times {[round(s, 3) for s in steps]} s; "
-          f"{evals_per_s:.3f} energy+grad evals/s (attempts 2+); peak memory {peak_gb:.2f} GB")
+          f"{evals_per_s:.3f} energy+grad evals/s (attempts 2+); peak memory {peak_gb:.2f} GB "
+          f"({base_gb:.2f} allocated before the run)")
     print(f"main path kernel launches: {launches} "
           f"(per energy+grad eval: "
           f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} })")
@@ -1213,32 +1545,10 @@ def main():
           f"{int((results['cpu'][3] != 0).sum())} of {results['cpu'][3].numel()} entries)")
     check(rel[0] < 1e-4 and max(rel[1:]) < 2e-4 and float(results["cpu"][3].abs().max()) > 0,
           f"flagship f32 forward or gradient disagrees with the CPU: {rel}")
-    del model32, model, out, state
+    del model32, model, out, state, run, decode, loss_fn, decode_w, loss_w, op_w
 
     # ---- 5. the port's CLI end to end ---------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        data = os.path.join(tmp, "data")
-        os.makedirs(data)
-        from PIL import Image
-
-        Image.fromarray((synthetic_image(np, d, SEED + 3) * 255).astype(np.uint8)).save(
-            os.path.join(data, "face.png"))
-        cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config",
-               os.path.join(ROOT, "configs", "ffhq.yaml"), "--device", "cuda",
-               "--algo", "hmc", "--deg", "inpaint_random", "--chains", "2", "--tau", "0.1",
-               "--epsilon", "0.05", "--hmc_epochs", "1", "--hmc_sampling", "1",
-               "--data_path", data, "-i", os.path.join(tmp, "out")]
-        t0 = time.time()
-        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-        lines = r.stdout.strip().splitlines()
-        check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
-              f"CLI failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        summary = json.loads(lines[-1])["summary"]
-        check(math.isfinite(summary.get("psnr", float("nan"))), f"CLI summary {summary}")
-        for f in ("0.png", "orig_0.png", "y0_0.png", "std_dev_map_0.png", "metrics.jsonl"):
-            check(os.path.exists(os.path.join(tmp, "out", f)), f"CLI did not write {f}")
-        print(f"CLI (configs/ffhq.yaml, 2 chains, cuda) in {time.time() - t0:.1f} s: "
-              f"{lines[-1]}")
+    phase_cli(np, d, "inpaint_random")
 
     # ---- 6. the memory-system probes, off the sampling path ---------------------------
     for name, rec_ in phase_probes(torch, (CHAINS, d * d, mcfg.model_channels)).items():
@@ -1252,6 +1562,20 @@ def main():
     latent_kernels = phase_latent_kernels(torch, attn, gn, kc, stats_records)
     phase_latent_cli(np)
     print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
+
+    # ---- 8. the forward operators ------------------------------------------------------------
+    t0 = time.time()
+    phase_operators_card_vs_cpu(torch, np, build_operator, d, c)
+    model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
+    model.load_state_dict(weights)
+    model = model.to(dev).eval()
+    operator_paths = phase_operator_attempts(
+        torch, np, engine, gn, ddim.make_decoder(model, sched, seq), counters,
+        (launches, n_evals), x_orig, d, c, hcfg)
+    del model
+    kernel_wizard = phase_kernel_wizard(torch, np)
+    phase_cli(np, d, "sr4")
+    print(f"phase 8 (the forward operators) took {time.time() - t0:.1f} s")
 
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
@@ -1318,7 +1642,8 @@ def main():
         "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
         "latent_path": {**path_record(latent_bf16), "quantizer_codes_differing": code_share},
-        "latent_path_f32": path_record(latent_f32)}))
+        "latent_path_f32": path_record(latent_f32), "operator_paths": operator_paths,
+        "kernel_wizard": kernel_wizard}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -38,7 +38,10 @@ def get_parser():
     p.add_argument("--algo", default="hmc",
                    help="hmc | hmc_latent (the ported samplers)")
     p.add_argument("--deg", default="inpaint_random",
-                   help="degradation: inpaint_random | inpaint_box")
+                   help="degradation: srN (N x N block averaging) | sr_bicubicN | "
+                        "inpaint_random | inpaint_box | deblur_gauss | deblur_aniso | "
+                        "deblur_nonlinear | csN (Walsh-Hadamard, 1/N kept) | color | "
+                        "denoise | hdr | phase_retrieval")
     p.add_argument("--sigma_0", type=float, default=0.05)
     p.add_argument("--timesteps", type=int, default=3)
     p.add_argument("--num_timesteps", type=int, default=1000)
@@ -87,7 +90,7 @@ def _check_ported(opt):
     if opt.algo in LATENT_ALGOS[1:]:
         raise NotImplementedError(
             f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; the latent path runs "
-            "'hmc_latent' only (ROADMAP.md, Queue 1 item 10)")
+            "'hmc_latent' only (ROADMAP.md, Queue 1 item 4: the baseline algorithms)")
     if opt.algo not in ("hmc", "hmc_latent"):
         raise NotImplementedError(
             f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; only the 'hmc' and "

@@ -64,7 +64,7 @@ def test_extract_kept_samples_matches_jax():
 
 @pytest.mark.parametrize("algo", ["resample", "resample_original"])
 def test_cli_unported_latent_algos_raise(tmp_path, algo):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 4"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu",
                   "--algo", algo])
     assert not (tmp_path / "o").exists()

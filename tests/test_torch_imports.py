@@ -31,7 +31,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     rel = {os.path.relpath(f, ROOT) for f in files}
     for module in ("models/ldm/autoencoder.py", "models/ldm/distributions.py",
                    "models/ldm/ldm.py", "models/ldm/port.py", "models/ldm/__init__.py",
-                   "hmc/latent.py", "cli_latent.py"):  # the latent path is checked too
+                   "hmc/latent.py", "cli_latent.py",  # the latent path is checked too
+                   "operators/base.py", "operators/linear.py", "operators/deblur.py",
+                   "operators/cs.py", "operators/nonlinear.py", "operators/general.py",
+                   "operators/nonlinear_blur.py", "models/kernel_wizard.py"):
         assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -79,6 +82,13 @@ def test_entry_points_default_to_cuda():
     for entry in ("nshmc_tpu_torch.hmc.engine.init_chains",
                   "nshmc_tpu_torch.operators.build_operator",
                   "nshmc_tpu_torch.operators.linear.Inpainting.__init__",
+                  "nshmc_tpu_torch.operators.linear.SuperResolution.create",
+                  "nshmc_tpu_torch.operators.deblur.Deblurring2D.aniso",
+                  "nshmc_tpu_torch.operators.deblur.SRConv.bicubic",
+                  "nshmc_tpu_torch.operators.cs.WalshHadamardCS.create",
+                  "nshmc_tpu_torch.operators.nonlinear.PhaseRetrieval.create",
+                  "nshmc_tpu_torch.operators.nonlinear_blur.NonlinearBlur.create",
+                  "nshmc_tpu_torch.operators.nonlinear_blur.NonlinearBlur.create_bkse",
                   "nshmc_tpu_torch.schedules.DiffusionSchedule.create",
                   "nshmc_tpu_torch.schedules.DiffusionSchedule.from_alphas_cumprod",
                   "nshmc_tpu_torch.models.port.load_adm_checkpoint",
