@@ -14,7 +14,7 @@ It builds the port's kernels from the sources in this checkout and then:
      kernel's launch count set to 0 just before and read just after (K1's
      f32 kernel: none; K2a once for each GN+SiLU and GroupNorm32 call that
      forward hooks count during the run, K2b once for each GN+SiLU call;
-     K2a's plain versions never, counted by wrappers). The
+     no plain version at all, counted by wrappers). The
      anneal lasts one epoch and one sample is kept, and chain 0's accept
      uniform is 0, so it accepts every finite proposal: the run reaches the
      (0.1, 0.01) switch and the sample write at the flagship shape;
@@ -58,7 +58,7 @@ It builds the port's kernels from the sources in this checkout and then:
      its bf16 kernel only, the f32 run through the 3xTF32 kernel only, each
      kernel counted on its own), K2a at every GN+SiLU and GroupNorm32 site,
      K2b at every GN+SiLU site, K2c at the VQ decoder's 23 and at none of
-     the stop-gradded eps-net's, P1-P4 and K2a's plain versions never; evals/s, peak
+     the stop-gradded eps-net's, P1-P4 and the plain versions never; evals/s, peak
      memory and useful TFLOP/s; (c) K1 at the latent U-Net's three shapes,
      bf16 and f32, timed beside SDPA and the bound; (d) K2a/K2b/K2c at the
      VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's, K2a at the
@@ -72,12 +72,31 @@ It builds the port's kernels from the sources in this checkout and then:
      bf16, 8 chains) with sr4, deblur_aniso, phase_retrieval and
      deblur_nonlinear, every kernel count set to 0 just before and read
      just after: finite start and end energies, the main path's launches an
-     evaluation, K2a's plain versions never; evals/s, peak memory and the
+     evaluation, the plain versions never; evals/s, peak memory and the
      operator's own loss and gradient time; (c) the bkse KernelWizard at
      its full config, random weights, batch 2 at 256^2, adapt_kernel and
      its input gradient card against CPU in f32 and f64 (the f32 gradient
      reported with the ReLU inputs whose sign rounding flips, the f64 one
-     held); (d) the CLI with --deg sr4 on configs/ffhq.yaml.
+     held); (d) the CLI with --deg sr4 on configs/ffhq.yaml;
+  9. the rest of the noise-space samplers and solvers, on the main path's
+     model and problem, every kernel count set to 0 just before each run
+     and read just after (K1, K2a, K2b and K2c launched, every plain
+     version never, evals/s and peak memory printed beside the card):
+     (a) mass-conditioned HMC, 4 attempts with chain 0 accepting every
+     finite proposal, its mass update in [e^-1, e^1]; (b) dual averaging,
+     2 rounds, the shared eps checked against the host's recursion on the
+     measured acceptance; (c) 2 attempts straight against 1 attempt,
+     snapshot, restore into a fresh state and generator and 1 attempt
+     (cuDNN deterministic); K1, K2a, K2b and K2c held against their plain
+     versions at the site shapes of batch 16 (bf16, f32) and batch 1
+     (bf16), and the bf16 input gradient's gap between a batch of 16 and
+     two of 8 read with cuDNN deterministic, without cuDNN, with the plain
+     versions swapped in, and beside the bf16-f32 distance; (d) 16 chains
+     in waves of 8 against one batch of 16 in bf16 and in f32, and
+     BASELINE config 4's shape, phase retrieval with 64 chains in waves of
+     8; (e) 2 images x 8 chains as one batch against each image alone;
+     (f) DMPlug Adam (10 steps) and L-BFGS (3 steps) at batch 1; (g) the
+     latent CLI with --checkpoint-dir run twice in this process.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
@@ -88,6 +107,7 @@ trace_operator_phase_retrieval.json, trace_latent_path.json,
 trace_latent_f32_path.json) and nothing else runs.
 """
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -156,12 +176,17 @@ def time_ms_graph(fn):
 
 
 @contextlib.contextmanager
-def plain_calls(gn):
-    """Count the calls of K2a's plain versions while the block runs: on the
-    card the main path must make none (ops/groupnorm.py looks both up by
-    module name, so the counting wrappers see every call that it makes)."""
+def plain_calls():
+    """Count the calls of every plain version, each `*_plain` function of
+    ops/groupnorm.py and ops/attention.py, while the block runs: on the
+    card no path may make one (both modules look them up by name at each
+    call, so the counting wrappers see every call that they make)."""
+    from nshmc_tpu_torch.ops import attention, groupnorm
+
     calls = {}
-    originals = {name: getattr(gn, name) for name in ("channel_stats_plain", "group_stats_plain")}
+    names = [(m, name) for m in (groupnorm, attention) for name in sorted(vars(m))
+             if name.endswith("_plain") and callable(getattr(m, name))]
+    originals = {(m, name): getattr(m, name) for m, name in names}
 
     def counting(name, fn):
         def wrapped(*args, **kwargs):
@@ -169,14 +194,28 @@ def plain_calls(gn):
             return fn(*args, **kwargs)
         return wrapped
 
-    for name, fn in originals.items():
+    for (m, name), fn in originals.items():
         calls[name] = 0
-        setattr(gn, name, counting(name, fn))
+        setattr(m, name, counting(name, fn))
     try:
         yield calls
     finally:
-        for name, fn in originals.items():
-            setattr(gn, name, fn)
+        for (m, name), fn in originals.items():
+            setattr(m, name, fn)
+
+
+def accepting_draws(engine, generators, like, n_attempts, accept):
+    """The engine's own draws (`draw_attempt` on each generator in turn, for
+    the chains of `like`), with the accept uniforms of the chains `accept`
+    (indices or a slice) set to 0, so that those chains accept every finite
+    proposal and move. Passed to a driver as its `draws`."""
+    import torch
+
+    for _ in range(n_attempts):
+        parts = [engine.draw_attempt(g, like) for g in generators]
+        p0, u = torch.cat([a for a, _ in parts]), torch.cat([b for _, b in parts])
+        u[accept] = 0.0
+        yield p0, u
 
 
 def bound_ms(bytes_moved, ops, dtype_name):
@@ -596,9 +635,9 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
     """The latent flagship's HMC run of `phase_latent_flagship` in `dtype`,
     with `sites` (U-Net GN+SiLU sites, attention blocks, decoder GN+SiLU
     sites, U-Net and decoder GroupNorm32 sites a forward): its launch counts,
-    no call of K2a's plain versions, and the chain checks; returns the
+    no call of a plain version, and the chain checks; returns the
     path's record."""
-    from nshmc_tpu_torch.hmc import latent
+    from nshmc_tpu_torch.hmc import engine, latent
 
     dev, dname = torch.device("cuda"), str(dtype).split(".")[1]
     n_unet_gn, n_attn, n_dec_gn, n_unet_norm, n_dec_norm = sites
@@ -615,18 +654,11 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
         if rnd == 1:  # the z0 the ring must hold after the last post-anneal accept
             ring["z0"] = states.last_z0_accept[0].clone()
 
-    def draws():  # the engine's own draws, but chain 0 accepts every finite proposal
-        for _ in range(hcfg.total_attempts):
-            p0 = torch.randn(state.z.shape, generator=p.gen, device=dev) * math.sqrt(hcfg.m)
-            u = torch.rand((CHAINS,), generator=p.gen, device=dev)
-            u[0] = 0.0
-            yield p0, u
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with plain_calls(gn) as plain:
-        out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=draws(),
-                                    callback=timed)
+    with plain_calls() as plain:  # the engine's own draws, but chain 0 accepts
+        out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=accepting_draws(
+            engine, [p.gen], state.z, hcfg.total_attempts, [0]), callback=timed)
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
     bwd_calls = gn.groupnorm_silu_backward.launches
@@ -652,7 +684,7 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
     want = {k1: 3 * n_attn * n_evals,
             "gn_stats": (3 * (n_unet_gn + n_unet_norm) + n_dec_gn + n_dec_norm) * n_evals,
             "gn_apply": (3 * n_unet_gn + n_dec_gn) * n_evals, **want_bwd}
-    check(not any(plain.values()), f"latent path ({dname}): K2a's plain versions ran on the "
+    check(not any(plain.values()), f"latent path ({dname}): plain versions ran on the "
                                    f"card: {plain}")
     check(bwd_calls == n_dec_gn * n_evals,
           f"{bwd_calls} GN+SiLU backward calls, {n_dec_gn * n_evals} expected: one per VQ "
@@ -951,7 +983,7 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
     each degradation of OPERATOR_MH_DEGS, every kernel count set to 0 just
     before and read just after: finite start and end energies for every
     chain, the main path's launches an evaluation for every kernel (none
-    depends on H), K2a's plain versions never. `main_counts`: (the main
+    depends on H), the plain versions never. `main_counts`: (the main
     path's launches, its evaluations). Returns {deg: record}."""
     main_launches, main_evals = main_counts
     evals = hcfg.n_leapfrog + 1
@@ -972,7 +1004,7 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
         base_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with plain_calls(gn) as plain:
+        with plain_calls() as plain:
             new, log_ratio = engine.hmc_attempt(recorded, hcfg, state, gen)
             torch.cuda.synchronize()
         dt = time.perf_counter() - t0
@@ -984,7 +1016,7 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
                    and torch.isfinite(log_ratio).all() and torch.isfinite(new.x).all()),
               f"{deg}: energies not finite: start {start.tolist()}, end {end.tolist()}, "
               f"log ratio {log_ratio.tolist()}")
-        check(not any(plain.values()), f"{deg}: K2a's plain versions ran on the card: {plain}")
+        check(not any(plain.values()), f"{deg}: plain versions ran on the card: {plain}")
         for k, v in launches.items():  # per evaluation, as the inpainting run's
             check(v * main_evals == main_launches[k] * evals,
                   f"{deg}: kernel {k} launched {v / evals} times an evaluation, the main "
@@ -1151,6 +1183,575 @@ def phase_cli(np, d, deg):
               f"{lines[-1]}")
 
 
+# ---- 9. the rest of the noise-space samplers and solvers ---------------------------------------
+# (c) resume: decisions, epochs, tau and eps equal; max |dx| within this share of max |x|
+# (cuDNN deterministic during (c), the port's kernels deterministic by design)
+RESUME_X_TOL = 1e-6
+# (d), (e) in bf16: the input gradient at a batch of 16 differs from two batches of 8 by
+# up to 11% of its norm, chain by chain (2e-6 in f32). With cuDNN off, the plain versions
+# swapped in, or both, it still differs by up to 13-14%, and the bf16 gradient differs
+# from the f32 one by up to 16% (`batch_gap_causes`, H100 80GB HBM3, 700 W): any change
+# of bf16 rounding moves it that far. 20 leapfrog steps carry that into the states (max
+# |dx| 0.65). So a chain's accept decision is compared where |log u - log ratio| exceeds
+# a nat, and a moved chain's state by |x_a - x_b| / |x_b - x_T| (L2): 2.5e-3-2.9e-3
+# measured (same card), ~1.4 for swapped chains, 1 for a chain that did not move
+DECISION_MARGIN = 1.0
+DISPLACEMENT_TOL = 0.01
+# (d) in f32: every decision equal, max |dx| within this share of max |x| (5.9e-5 to
+# 2.1e-4 measured, run to run, H100 80GB HBM3, 700 W)
+F32_WAVES_X_TOL = 1e-3
+PHASE9_CHAINS = 16   # (d) and (e): 16 chains, as waves of 8 or as 2 images x 8
+PR_CHAINS, PR_CHUNK = 64, 8  # BASELINE config 4's shape: phase retrieval, 64 chains in waves of 8
+EVEN = slice(None, None, 2)  # (b)-(e): the even chains accept every finite proposal
+
+
+class Phase9:
+    """Phase 9's shared pieces: the flagship model (bf16, 8 chains, L = 20),
+    its problem, and `run`, which sets every kernel count to 0 just before
+    a run and reads it just after."""
+
+    def __init__(self, torch, np, engine, attn, gn, kc, model, decode, counters, x_orig, d, c,
+                 sigma_0, card, f32_decoder):
+        self.torch, self.np, self.engine, self.attn, self.gn, self.kc = (
+            torch, np, engine, attn, gn, kc)
+        self.model, self.decode, self.counters = model, decode, counters
+        self.x_orig, self.d, self.c, self.sigma_0, self.card = x_orig, d, c, sigma_0, card
+        self.f32_decoder = f32_decoder  # () -> (the flagship U-Net in f32, its decoder)
+        self.batch_noise = {}
+        self.dev = x_orig.device
+        self.sms = torch.cuda.get_device_properties(self.dev).multi_processor_count
+        self.records = {}
+
+    def problem(self, deg, n_chains, seed=SEED):
+        """y0 = H(x) + sigma_0 noise and x_T of `n_chains` drawn on the host from
+        generator seed `seed` (as the CLI draws image seed's), the loss and the
+        engine's device generator."""
+        from nshmc_tpu_torch.cli import host_randn, image_generators
+        from nshmc_tpu_torch.operators import build_operator
+
+        op = build_operator(deg, self.c, self.d, self.np.random.default_rng(SEED),
+                            device=self.dev)
+        host, gen = image_generators(seed, self.dev)
+        with self.torch.no_grad():
+            y0 = op.H_img(self.x_orig)
+        y0 = y0 + self.sigma_0 * host_randn(y0.shape, host, self.dev)
+        x = host_randn((n_chains, self.d, self.d, self.c), host, self.dev)
+        return op, y0, x, gen
+
+    def run(self, label, fn, evals, k1="attention", root=None):
+        """fn() with every count set to 0 just before and read just after: K1
+        (`k1`, its bf16 or f32 kernel) launched, K2a, K2b and K2c launched, no
+        other kernel and no plain version at all. With `root` (a model whose
+        modules the hooks count), K2a once for each GN+SiLU and GroupNorm32
+        call, K2b once for each GN+SiLU call and K2c only by a design that
+        bwd_design picks at a shape the run saw. `evals`: the run's
+        energy+grad evaluations (or solver steps). Returns fn()'s result."""
+        torch, gn = self.torch, self.gn
+        for f in (*self.counters.values(), gn.groupnorm_silu_backward):
+            f.launches = 0
+        torch.cuda.synchronize()
+        base_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        box = {}
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            if root is not None:
+                gn_calls, _, norm_calls = self.kc.count_sites(
+                    root, lambda: box.setdefault("out", fn()))
+            else:
+                box["out"] = fn()
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        launches = {k: f.launches for k, f in self.counters.items()}
+        k2c = launches["gn_backward"] + launches["gn_backward_twopass"]
+        check(not any(plain.values()), f"{label}: plain versions ran on the card: {plain}")
+        calls = gn.groupnorm_silu_backward.launches  # channel chunks: several launches a call
+        check(launches[k1] > 0 and launches["gn_stats"] > 0 and launches["gn_apply"] > 0
+              and k2c >= calls > 0 and (k2c == calls or root is None),
+              f"{label}: K1, K2a, K2b and K2c must all launch: {launches}, K2c calls "
+              f"{gn.groupnorm_silu_backward.launches}")
+        allowed = {k1, "gn_stats", "gn_apply", *BWD_KERNELS.values()}
+        if root is not None:
+            n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
+            check(launches["gn_stats"] == n_silu + n_norm and launches["gn_apply"] == n_silu,
+                  f"{label}: K2a {launches['gn_stats']}, K2b {launches['gn_apply']} launches for "
+                  f"{n_silu} GN+SiLU and {n_norm} GroupNorm32 calls")
+            allowed = {k1, "gn_stats", "gn_apply",
+                       *(BWD_KERNELS[gn.bwd_design(*s_, 4 if k1 == "attention_f32" else 2,
+                                                   self.sms)] for s_ in gn_calls)}
+        for k, v in launches.items():
+            if k not in allowed:
+                check(v == 0, f"{label}: kernel {k} launched {v} times, where no shape takes it")
+        rec = dict(s=dt, evals=evals, evals_per_s=evals / dt, peak_memory_gb=peak_gb,
+                   allocated_before_gb=base_gb, launches=launches, card=self.card)
+        self.records[label] = rec
+        print(f"phase 9 {label}: {dt:.3f} s, {evals} energy+grad evals (or steps), "
+              f"{rec['evals_per_s']:.3f} a second, peak memory {peak_gb:.2f} GB ({base_gb:.2f} "
+              f"allocated before); launches { {k: v for k, v in launches.items() if v} }; "
+              f"plain versions 0 "
+              f"({', '.join(sorted(plain))}); {self.card}")
+        return box["out"]
+
+
+@contextlib.contextmanager
+def swapped(*swaps):
+    """Each (object, attribute, value) of `swaps` set while the block runs,
+    then restored."""
+    olds = [(o, name, getattr(o, name)) for o, name, _ in swaps]
+    for o, name, value in swaps:
+        setattr(o, name, value)
+    try:
+        yield
+    finally:
+        for o, name, value in olds:
+            setattr(o, name, value)
+
+
+def plain_swaps(gn, attn):
+    """The swaps that put each kernel wrapper's plain version where the
+    models call the wrapper: K2a (ops/groupnorm.py and models/nn.py look up
+    `group_stats`), K2b, K2c and K1's forward."""
+    from nshmc_tpu_torch.models import nn as nn_mod
+
+    return ((gn, "group_stats", gn.group_stats_plain),
+            (nn_mod, "group_stats", gn.group_stats_plain),
+            (gn, "normalize_silu", gn.normalize_silu_plain),
+            (gn, "groupnorm_silu_backward", gn.groupnorm_silu_backward_plain),
+            (attn, "attention_forward", attn.attention_plain))
+
+
+def recording_propose(engine, log):
+    """The swap of engine.leapfrog_propose for a copy that records each
+    call's (u, log ratio); the drivers return neither."""
+    propose = engine.leapfrog_propose
+
+    def wrapped(*args, **kwargs):
+        out = propose(*args, **kwargs)
+        log.append((kwargs.get("u", args[8] if len(args) > 8 else None), out[4]))
+        return out
+    return engine, "leapfrog_propose", wrapped
+
+
+def clear_decisions(torch, log):
+    """(u, log ratio) calls -> per chain, whether its accept decision is
+    clear of a differently batched run's float noise: |log u - log ratio| >
+    DECISION_MARGIN nats."""
+    u = torch.cat([a for a, _ in log])
+    lr = torch.cat([b for _, b in log])
+    return ((torch.log(u) - lr).abs() > DECISION_MARGIN) & torch.isfinite(lr)
+
+
+def compare_chains(torch, label, a, b, x_start, clear):
+    """Accept decisions equal where `clear`; for the moved ones among them
+    |x_a - x_b| / |x_b - x_T| (L2, per chain) within DISPLACEMENT_TOL.
+    Returns (that ratio's largest value, the count compared)."""
+    check(bool(clear.any()), f"{label}: no decision clear of the float noise")
+    for name in ("accepted", "epoch"):
+        check(torch.equal(getattr(a, name)[clear], getattr(b, name)[clear]),
+              f"{label}: {name} {getattr(a, name).tolist()} vs {getattr(b, name).tolist()}")
+    moved = clear & (b.accepted > 0)
+    check(bool(moved.any()), f"{label}: no clear decision moved a chain")
+    ratio = ((a.x - b.x)[moved].flatten(1).norm(dim=1)
+             / (b.x - x_start)[moved].flatten(1).norm(dim=1))
+    worst = float(ratio.max())
+    check(worst <= DISPLACEMENT_TOL, f"{label}: moved states differ by {ratio.tolist()} of "
+                                     f"their displacement (tolerance {DISPLACEMENT_TOL})")
+    return worst, f"{int(clear.sum())} of {clear.numel()} decisions, {int(moved.sum())} moved"
+
+
+def apply_check(torch, gn, x, form, g):
+    """K2b on plain statistics against normalize_silu_plain, with a seeded
+    affine of `form` (per channel or per (batch, channel)): (ok, max abs
+    err). Bars: f32 1e-4; bf16 one rounding step, 2^-7 |y| + 1e-3."""
+    b, r, cc = x.shape
+    mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
+    shape = (cc,) if form == "per_channel" else (b, cc)
+    sc = 1 + 0.3 * torch.randn(shape, generator=g, device=x.device)
+    bi = 0.3 * torch.randn(shape, generator=g, device=x.device)
+    y_p = gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi).float()
+    diff = (gn.normalize_silu(x, mean_c, inv_c, sc, bi).float() - y_p).abs()
+    tol = 1e-4 if x.dtype == torch.float32 else 2 ** -7 * y_p.abs() + 1e-3
+    return bool((diff <= tol).all()), float(diff.max())
+
+
+def kernels_at_batches(p):
+    """K1, K2a, K2b and K2c held against their plain versions at the site
+    shapes of phase 9's runs away from batch 8, at phase 3's bars
+    (kernel_check): batch 16 ((d), (e)) in bf16 and in f32 ((d)'s f32 run),
+    batch 1 ((f)) in bf16. A decode at that batch, under forward hooks,
+    gives the shapes; K2c is called through its wrapper, which picks the
+    design (or the channel chunks) by the shape, as the runs call it."""
+    import collections
+
+    torch, kc, gn, dev = p.torch, p.kc, p.gn, p.dev
+    g = torch.Generator(device=dev).manual_seed(SEED + 31)
+    for batch, dtypes in ((PHASE9_CHAINS, (torch.bfloat16, torch.float32)),
+                          (1, (torch.bfloat16,))):
+        with torch.no_grad():
+            gn_shapes, attn_shapes, norm_shapes = kc.count_sites(p.model, lambda: p.decode(
+                torch.zeros((batch, p.d, p.d, p.c), device=dev)))
+        check(all(s_[0] == batch for s_ in [*gn_shapes, *attn_shapes, *norm_shapes]),
+              f"batch {batch}: site shapes {gn_shapes}, {attn_shapes}, {norm_shapes}")
+        for dt in dtypes:
+            dname = str(dt).split(".")[1]
+            worst, routes = collections.defaultdict(float), collections.Counter()
+            for shape in sorted(attn_shapes):
+                res = kc.attention_check(*kc.qkv_inputs(shape, dt, g, dev))
+                check(res["ok"], f"phase 9 K1 {shape} {dname}: {kc.attention_summary(res)}")
+                worst["K1"] = max(worst["K1"], res["max_abs_err"])
+            for shape in sorted({**gn_shapes, **norm_shapes}):
+                x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+                res = kc.gn_stats_check(x, gn.NUM_GROUPS, gn.EPS, g)
+                check(res["ok"], f"phase 9 K2a {shape} {dname}: {kc.stats_summary(res)}")
+                worst["K2a sums rel"] = max(worst["K2a sums rel"], res["sums_rel"])
+                worst["GN+SiLU"] = max(worst["GN+SiLU"], res["apply_err"])
+            for shape in sorted(gn_shapes):
+                x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+                for form in kc.AFFINE_FORMS:
+                    ok, err = apply_check(torch, gn, x, form, g)
+                    check(ok, f"phase 9 K2b {shape} {dname} {form}: apply max {err:.2e}")
+                    worst["K2b"] = max(worst["K2b"], err)
+                    res = kc.gn_backward_check(*kc.gn_inputs(shape, dt, form, g, dev))
+                    check(res["ok"], f"phase 9 K2c {shape} {dname} {form}: {res}")
+                    worst["K2c dx"] = max(worst["K2c dx"], res["dx_err"])
+                routes[kc.wrapper_route(shape, dt, p.sms)] += gn_shapes[shape] // 3
+            print(f"phase 9 kernels at batch {batch}, {dname}: K1 at {len(attn_shapes)}, K2a at "
+                  f"{len(gn_shapes) + len(norm_shapes)}, K2b and K2c (both affine forms) at "
+                  f"{len(gn_shapes)} site shapes agree with their plain versions at phase 3's "
+                  f"bars, two calls bit-identical; worst {json.dumps(worst)}; K2c's route by "
+                  f"sites a U-Net forward {dict(routes)}")
+
+
+def gradient_gap(p, loss_fn, x):
+    """Per chain, |g16 - g8| / |g8| (L2): the input gradient of `loss_fn` at
+    one batch of x's chains against the same chains as two half batches."""
+    torch, engine = p.torch, p.engine
+    half = x.shape[0] // 2
+    g16 = engine.value_and_grad(loss_fn, x)[2]
+    g8 = torch.cat([engine.value_and_grad(loss_fn, x[a:a + half])[2] for a in (0, half)])
+    return ((g16 - g8).flatten(1).norm(dim=1) / g8.flatten(1).norm(dim=1)).tolist()
+
+
+def batch_gap_causes(p, decode32, x16):
+    """What moves the bf16 input gradient between a batch of 16 and two of
+    8 (`gradient_gap`): the path as it runs; with cuDNN deterministic; with
+    cuDNN off (torch's own convolution, one GEMM an image whatever the
+    batch); with the kernels' plain versions swapped in (`plain_swaps`;
+    none of the kernels may launch); with both. Beside it the f32 gap and
+    the bf16 gradient's own distance from the f32 one at batch 8. Returns
+    {setting: per-chain values}."""
+    torch, engine, gn = p.torch, p.engine, p.gn
+    op, y0, _, _ = p.problem("inpaint_random", 1)
+    loss16 = engine.make_pixel_loss_fn(p.decode, op, y0[0])
+    loss32 = engine.make_pixel_loss_fn(decode32, op, y0[0])
+    no_cudnn = (torch.backends.cudnn, "enabled", False)
+    settings = {"kernels, cuDNN": (),
+                "kernels, cuDNN deterministic": ((torch.backends.cudnn, "deterministic", True),),
+                "kernels, no cuDNN": (no_cudnn,),
+                "plain versions, cuDNN": plain_swaps(gn, p.attn),
+                "plain versions, no cuDNN": (*plain_swaps(gn, p.attn), no_cudnn)}
+    gaps = {}
+    for name, swaps in settings.items():
+        for f in (*p.counters.values(), gn.groupnorm_silu_backward):
+            f.launches = 0
+        t0 = time.perf_counter()
+        with swapped(*swaps):
+            gaps[name] = gradient_gap(p, loss16, x16)
+            torch.cuda.synchronize()
+        launched = sum(f.launches for f in p.counters.values())
+        check(launched == 0 if name.startswith("plain") else launched > 0,
+              f"batch gap, {name}: {launched} kernel launches")
+        print(f"  (d) bf16 gradient gap, batch 16 against 2 x 8, {name}: "
+              f"{min(gaps[name]):.2e}-{max(gaps[name]):.2e} of its norm, "
+              f"{sum(v > 0.01 for v in gaps[name])} of {len(gaps[name])} chains over 1% "
+              f"({launched} kernel launches, {time.perf_counter() - t0:.1f} s)")
+    gaps["float32 kernels, cuDNN"] = gradient_gap(p, loss32, x16)
+    g_bf16 = torch.cat([engine.value_and_grad(loss16, x16[a:a + CHAINS])[2] for a in (0, CHAINS)])
+    g_f32 = torch.cat([engine.value_and_grad(loss32, x16[a:a + CHAINS])[2] for a in (0, CHAINS)])
+    gaps["bf16 against f32, batch 8"] = ((g_bf16 - g_f32).flatten(1).norm(dim=1)
+                                         / g_f32.flatten(1).norm(dim=1)).tolist()
+    for name in ("float32 kernels, cuDNN", "bf16 against f32, batch 8"):
+        print(f"  (d) {name}: {min(gaps[name]):.2e}-{max(gaps[name]):.2e} of the gradient's "
+              f"norm, chain by chain")
+    print(f"phase 9 gradient gaps by chain: {json.dumps(gaps)}")
+    return gaps
+
+
+def batch_invariance(p, model32, decode32):
+    """(d) 16 chains in waves of 8 against one batch of 16, and (e) 2 images x
+    8 chains as one batch against each image alone, one attempt each, with
+    the even chains accepting. bf16: decisions equal where clear, the moved
+    states within DISPLACEMENT_TOL; then (d) in f32: every decision equal,
+    max |dx| within F32_WAVES_X_TOL of max |x|."""
+    torch, engine = p.torch, p.engine
+    shape, evals = (p.d, p.d, p.c), 21
+    one = engine.HMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
+                           max_attempts=1)
+
+    def recorded(label, fn, **run_kw):
+        log = []
+        with swapped(recording_propose(engine, log)):
+            out = p.run(label, fn, evals, **run_kw)
+        return out, clear_decisions(torch, log)
+
+    def waves(label, decode, chunk, **run_kw):
+        gen = torch.Generator(p.dev).manual_seed(SEED + 5)
+        return recorded(label, lambda: engine.run_hmc(
+            engine.make_pixel_loss_fn(decode, op, y0[0]), one,
+            engine.init_chains(one, PHASE9_CHAINS, shape, p.dev, x=x16), gen,
+            draws=accepting_draws(engine, [gen], x16, 1, EVEN), chain_chunk=chunk), **run_kw)
+
+    op, y0, x16, _ = p.problem("inpaint_random", PHASE9_CHAINS)
+    labels = ["(d) 16 chains, one batch", "(d) 16 chains, waves of 8"]
+    (whole, c0), (in_waves, c8) = [waves(label, p.decode, chunk, root=p.model)
+                                   for label, chunk in zip(labels, (0, 8))]
+    worst, n_clear = compare_chains(torch, "(d)", in_waves, whole, x16, c0 & c8)
+    peaks = [p.records[k]["peak_memory_gb"] for k in labels]
+    check(peaks[1] < peaks[0], f"(d): waves' peak {peaks[1]} GB not below one batch's {peaks[0]}")
+    print(f"  (d) waves of 8 against one batch of 16: {n_clear}, equal; the moved states "
+          f"differ by at most {worst:.3e} of their displacement (max |dx| "
+          f"{float((in_waves.x - whole.x).abs().max()):.3e}); peak memory {peaks[1]:.2f} GB in "
+          f"waves, {peaks[0]:.2f} GB as one batch")
+    del whole, in_waves
+
+    probs = [p.problem("inpaint_random", CHAINS, seed=SEED + i) for i in range(2)]
+    x_start = torch.cat([q[2] for q in probs])
+    state = engine.init_chains(one, 2 * CHAINS, shape, p.dev, x=x_start)
+    y0s = torch.cat([q[1] for q in probs])
+    builder = lambda y: engine.make_pixel_loss_fn(p.decode, probs[0][0], y)
+    gens = [torch.Generator(p.dev).manual_seed(SEED + 20 + i) for i in range(2)]
+    multi, clear = recorded("(e) image batch, 2 images x 8 chains", lambda: engine.run_hmc_multi(
+        builder, one, state, y0s, gens, draws=accepting_draws(
+            engine, gens, state.x[:CHAINS], 1, EVEN)), root=p.model)
+    gens = [torch.Generator(p.dev).manual_seed(SEED + 20 + i) for i in range(2)]
+    alone = [recorded(f"(e) image {i} alone", lambda: engine.run_hmc(
+        builder(y0s[i]), one, engine._chains(state, i * CHAINS, (i + 1) * CHAINS), gens[i],
+        draws=accepting_draws(engine, [gens[i]], state.x[:CHAINS], 1, EVEN)), root=p.model)
+        for i in range(2)]
+    worst, n_clear = compare_chains(torch, "(e)", multi, engine._concat([a for a, _ in alone]),
+                                    x_start, clear & torch.cat([c_ for _, c_ in alone]))
+    print(f"  (e) each image of the batch against its lone run: {n_clear}, equal; the moved "
+          f"states differ by at most {worst:.3e} of their displacement")
+    del multi, alone, state
+
+    labels = ["(d) f32, 16 chains, one batch", "(d) f32, 16 chains, waves of 8"]
+    (whole, _), (in_waves, _) = [waves(label, decode32, chunk, k1="attention_f32", root=model32)
+                                 for label, chunk in zip(labels, (0, 8))]
+    for name in ("accepted", "epoch"):
+        check(torch.equal(getattr(whole, name), getattr(in_waves, name)),
+              f"(d) f32: {name} {getattr(whole, name).tolist()} vs "
+              f"{getattr(in_waves, name).tolist()}")
+    check(int(whole.accepted.sum()) > 0, "(d) f32: no chain moved")
+    dx, x_max = float((in_waves.x - whole.x).abs().max()), float(whole.x.abs().max())
+    check(dx <= F32_WAVES_X_TOL * x_max,
+          f"(d) f32: max |dx| {dx} > {F32_WAVES_X_TOL} x max |x| {x_max}")
+    print(f"  (d) f32, waves of 8 against one batch of 16: every decision equal (accepted "
+          f"{whole.accepted.tolist()}), max |dx| {dx:.3e} = {dx / x_max:.2e} of max |x| "
+          f"(tolerance {F32_WAVES_X_TOL})")
+
+
+def phase_noise_space(p, hcfg_main):
+    """Phase 9: (a) --algo hmc_cond, (b) --adapt da, (c) snapshot and resume,
+    the kernels at batches 16 and 1 and the batch-16 gradient gap, (d) chain
+    waves (bf16, f32) and BASELINE config 4's 64 phase-retrieval chains, (e)
+    --image_batch, (f) DMPlug Adam and L-BFGS; (g), the latent CLI with
+    --checkpoint-dir run twice, is `phase_latent_checkpoint_cli`. Returns
+    the runs' records."""
+    torch, np, engine = p.torch, p.np, p.engine
+    from nshmc_tpu_torch.hmc import adaptation
+    from nshmc_tpu_torch.solvers import dmplug
+
+    t_phase = time.time()
+    evals = hcfg_main.n_leapfrog + 1
+    shape = (p.d, p.d, p.c)
+
+    # (a) mass-conditioned HMC: chain 0 accepts every finite proposal, so its
+    # mass update (accepted, epoch > epochs // 3 = 1) fires at attempts 3 and 4
+    op, y0, x, gen = p.problem("inpaint_random", CHAINS)
+    loss_fn = engine.make_pixel_loss_fn(p.decode, op, y0[0])
+    ccfg = adaptation.ConditionedHMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, burn=0,
+                                           epochs=3, sampling=1, max_attempts=4)
+    state = adaptation.init_conditioned_chains(ccfg, CHAINS, shape, p.dev, x=x)
+    out = p.run("(a) hmc_cond", lambda: adaptation.run_conditioned_hmc(
+        loss_fn, ccfg, state, gen, draws=accepting_draws(engine, [gen], x, 4, [0])),
+        4 * evals, root=p.model)
+    m0 = out.mass_diag[0]
+    k = ccfg.mass_k
+    check(int(out.attempts.min()) == 4 and int(out.accepted[0]) == 4,
+          f"(a): attempts {out.attempts.tolist()}, accepted {out.accepted.tolist()}")
+    check(bool(torch.isfinite(m0).all()) and float((m0 - 1).abs().max()) > 0.1
+          and float(m0.min()) >= math.exp(-k) * (1 - 1e-6)
+          and float(m0.max()) <= math.exp(k) * (1 + 1e-6),
+          f"(a): chain 0's mass_diag {float(m0.min())}..{float(m0.max())}")
+    print(f"  (a) chain 0: accepted {int(out.accepted[0])}, epoch {int(out.epoch[0])}, mass_diag "
+          f"in [{float(m0.min()):.4f}, {float(m0.max()):.4f}] (bounds e^-1, e^1), mean "
+          f"{float(m0.mean()):.4f}; accepted {out.accepted.tolist()}")
+    del out, state
+
+    # (b) dual averaging, 2 rounds, the anneal long enough for every chain; the even
+    # chains accept every finite proposal, so the measured acceptance is not 0
+    dcfg = engine.HMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, epochs=60, sampling=1,
+                            max_attempts=2)
+    state = engine.init_chains(dcfg, CHAINS, shape, p.dev, x=x)
+    rounds = []
+    out, da = p.run("(b) adapt da", lambda: adaptation.run_hmc_dual_averaging(
+        loss_fn, dcfg, state, generator=gen, draws=accepting_draws(engine, [gen], x, 2, EVEN),
+        callback=lambda s, d_, r: rounds.append((s.accepted.clone(), s.rejected.clone(),
+                                                 s.epsilon.clone(), float(d_.log_eps)))),
+        2 * evals, root=p.model)
+    # the host's recursion, float32 numpy, from the measured acceptance
+    f = np.float32
+    h_sum, mu, prev_acc = f(0.0), f(math.log(10.0 * 0.05)), torch.zeros_like(state.accepted)
+    eps_used, rates = f(np.exp(f(math.log(0.05)))), []
+    for t, (acc, rej, eps, dev_log_eps) in enumerate(rounds, 1):
+        rates.append(f((acc - prev_acc).sum().item() / CHAINS))
+        want = np.where((rej >= 2).cpu().numpy(), f(eps_used * f(0.95)), eps_used)
+        check(np.allclose(eps.cpu().numpy(), want, rtol=1e-6),
+              f"(b) round {t}: eps {eps.tolist()} not the shared {eps_used}")
+        h_sum = f(h_sum + f(f(0.65) - rates[-1]))
+        log_eps = f(mu - f(f(np.sqrt(f(t)) / f(0.05)) * h_sum) / f(f(t) + f(10.0)))
+        check(abs(float(log_eps) - dev_log_eps) <= 1e-5 * abs(float(log_eps)) + 1e-6,
+              f"(b) round {t}: log eps {dev_log_eps} on the card, {float(log_eps)} on the host")
+        eps_used, prev_acc = f(np.exp(log_eps)), acc
+    print(f"  (b) acceptance by round {[float(r) for r in rates]}, shared eps "
+          f"{[float(r[2][0]) for r in rounds]}, next {float(eps_used)}; dual-averaged eps "
+          f"{float(torch.exp(da.log_eps_avg)):.5f} after {int(da.t)} rounds (the host's "
+          f"recursion agrees)")
+    del out, state
+
+    # (c) resume: 2 attempts straight against 1 attempt and its final snapshot (a
+    # run whose budget is 1 attempt), then a restore into a fresh state and
+    # generator and 1 more attempt; the even chains accept, so the states move
+    from nshmc_tpu_torch.utils import checkpointing
+
+    rcfg = engine.HMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
+                            max_attempts=2)
+    fresh = lambda: engine.init_chains(rcfg, CHAINS, shape, p.dev, x=x)
+
+    def resume_run(label, attempts, gen_, ck="", ran=None):  # ran: the attempts it runs
+        return p.run(label, lambda: engine.run_hmc(
+            loss_fn, dataclasses.replace(rcfg, max_attempts=attempts), fresh(), gen_,
+            draws=accepting_draws(engine, [gen_], x, attempts, EVEN), checkpoint_dir=ck),
+            (ran or attempts) * evals, root=p.model)
+
+    with swapped((torch.backends.cudnn, "deterministic", True)):
+        straight = resume_run("(c) resume: 2 attempts straight", 2,
+                              torch.Generator(p.dev).manual_seed(SEED + 9))
+        with tempfile.TemporaryDirectory() as ck:
+            resume_run("(c) resume: 1 attempt + snapshot", 1,
+                       torch.Generator(p.dev).manual_seed(SEED + 9), ck)
+            saved = checkpointing.load_chain_state(ck, fresh())
+            check(saved is not None and int(saved.attempts.max()) == 1, "(c): no snapshot")
+            other = torch.Generator(p.dev).manual_seed(SEED + 77)  # the snapshot's state
+            resumed = resume_run("(c) resume: restore + 1 attempt", 2, other, ck, ran=1)
+    for name in ("accepted", "epoch", "attempts", "rejected"):
+        check(torch.equal(getattr(straight, name), getattr(resumed, name)),
+              f"(c): {name} {getattr(straight, name).tolist()} vs "
+              f"{getattr(resumed, name).tolist()}")
+    for name in ("tau", "epsilon"):
+        check(torch.equal(getattr(straight, name), getattr(resumed, name)), f"(c): {name} differ")
+    check(int(straight.accepted.sum()) > 0, "(c): no chain moved")
+    dx = float((straight.x - resumed.x).abs().max())
+    check(dx <= RESUME_X_TOL * float(straight.x.abs().max()), f"(c): max |dx| {dx}")
+    print(f"  (c) resumed run equals the straight one: accepted {resumed.accepted.tolist()}, "
+          f"epochs {resumed.epoch.tolist()}, tau/eps equal, max |dx| {dx} (tolerance "
+          f"{RESUME_X_TOL} x max |x|)")
+    del straight, resumed, loss_fn
+
+    # (d), (e): the kernels at batches 16 and 1 against their plain versions; what
+    # moves the gradient between batch 16 and 2 x 8; then the runs, in bf16 (the main
+    # path's readings) and (d) in f32 (the states held)
+    kernels_at_batches(p)
+    model32, decode32 = p.f32_decoder()
+    x16 = p.problem("inpaint_random", PHASE9_CHAINS)[2]
+    p.batch_noise = batch_gap_causes(p, decode32, x16)
+    batch_invariance(p, model32, decode32)
+    del model32, decode32
+
+    one = engine.HMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
+                           max_attempts=1)
+    op, y0, x64, gen = p.problem("phase_retrieval", PR_CHAINS)
+    loss_fn = engine.make_pixel_loss_fn(p.decode, op, y0[0])
+    out = p.run("(d) phase_retrieval, 64 chains in waves of 8", lambda: engine.run_hmc(
+        loss_fn, one, engine.init_chains(one, PR_CHAINS, shape, p.dev, x=x64), gen,
+        chain_chunk=PR_CHUNK), evals, root=p.model)
+    rec = p.records["(d) phase_retrieval, 64 chains in waves of 8"]
+    rec["chain_evals_per_s"] = rec["evals_per_s"] * PR_CHAINS
+    check(bool(torch.isfinite(out.x).all()) and int(out.attempts.min()) == 1,
+          "(d) phase retrieval: state not finite")
+    print(f"  (d) BASELINE config 4's shape: {PR_CHAINS} chains, 1 attempt in "
+          f"{PR_CHAINS // PR_CHUNK} waves: {rec['chain_evals_per_s']:.2f} chain-evaluations/s, "
+          f"accepted {int(out.accepted.sum())} of {PR_CHAINS}")
+    del out, loss_fn, x64
+
+    # (f) DMPlug at batch 1: Adam 10 steps, L-BFGS 3 steps
+    op, y0, x1, _ = p.problem("inpaint_random", 1)
+
+    def loss_and_decode(x):
+        x0 = p.decode(x)
+        return torch.sum((y0 - op.H_img(x0)) ** 2), x0
+
+    adam_losses, lbfgs_losses = [], []
+    p.run("(f) dmplug_adam, 10 steps", lambda: dmplug.dmplug_adam(
+        loss_and_decode, x1, dmplug.DMPlugAdamConfig(max_steps=10),
+        progress=lambda k_, l_: adam_losses.append(l_)), 10, root=p.model)  # 10 steps
+    p.run("(f) dmplug_lbfgs, 3 steps", lambda: dmplug.dmplug_lbfgs(
+        loss_and_decode, x1, epochs=1, max_inner=3, chunk=1,
+        progress=lambda k_, l_: lbfgs_losses.append(l_)), 3, root=p.model)
+    for name, ls in (("dmplug_adam", adam_losses), ("dmplug_lbfgs", lbfgs_losses)):
+        check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0], f"(f) {name}: losses {ls}")
+        p.records[f"(f) {name}, {len(ls)} steps"]["steps_per_s"] = (
+            len(ls) / p.records[f"(f) {name}, {len(ls)} steps"]["s"])
+    print(f"  (f) dmplug_adam losses {[round(v, 1) for v in adam_losses]}; dmplug_lbfgs losses "
+          f"{[round(v, 1) for v in lbfgs_losses]}")
+    print(f"phase 9 (a)-(f) took {time.time() - t_phase:.1f} s")
+    return p.records
+
+
+def phase_latent_checkpoint_cli(p):
+    """(g) The latent CLI in this process, --algo hmc_latent on
+    configs/ffhq_latent.yaml (f32, 2 chains, 3 attempts at L = 2) with
+    --checkpoint-dir, twice: the first run launches K1's f32 kernel, K2a,
+    K2b and K2c and no plain version; the second restores the final
+    snapshot, runs no attempt (K2c 0 launches) and writes the same 0.png
+    and summary."""
+    from PIL import Image
+    from nshmc_tpu_torch import cli
+
+    np = p.np
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        Image.fromarray((synthetic_image(np, 256, SEED + 4) * 255).astype(np.uint8)).save(
+            os.path.join(data, "face.png"))
+        argv = ["--config", LATENT_CFG, "--device", "cuda", "--algo", "hmc_latent", "--deg",
+                "inpaint_random", "--chains", "2", "--tau", "0.1", "--epsilon", "0.05",
+                "--latent_epochs", "1", "--latent_sampling", "1", "--data_path", data,
+                "--checkpoint-dir", os.path.join(tmp, "ck")]
+        first = p.run("(g) latent CLI --checkpoint-dir, run 1", lambda: cli.main(
+            argv + ["-i", os.path.join(tmp, "out1")]), 3 * 3, k1="attention_f32")
+        check(os.path.exists(os.path.join(tmp, "ck", "img0", "step_0.pt")),
+              "(g): no snapshot under img0")
+        for f in (*p.counters.values(), p.gn.groupnorm_silu_backward):
+            f.launches = 0
+        t0 = time.perf_counter()
+        with plain_calls() as plain:
+            second = cli.main(argv + ["-i", os.path.join(tmp, "out2")])
+            p.torch.cuda.synchronize()
+        k2c = p.gn.groupnorm_silu_backward.launches
+        check(k2c == 0 and not any(plain.values()),
+              f"(g) run 2: K2c launched {k2c} times (the run did not restore the final "
+              f"snapshot) or plain versions ran: {plain}")
+        a = np.asarray(Image.open(os.path.join(tmp, "out1", "0.png")))
+        b = np.asarray(Image.open(os.path.join(tmp, "out2", "0.png")))
+        check(np.array_equal(a, b) and first == second,
+              f"(g): the resumed run's 0.png or summary differs: {first} vs {second}")
+        print(f"phase 9 (g) latent CLI --checkpoint-dir, run 2: {time.perf_counter() - t0:.3f} s, "
+              f"restored the final snapshot (K2c 0 launches, no attempt), the same 0.png and "
+              f"summary {second}; {p.card}")
+
+
 def main():
     args = sys.argv[1:]
     trace_dir = None
@@ -1270,19 +1871,13 @@ def main():
         torch.cuda.synchronize()
         round_s.append(time.perf_counter())
 
-    def draws():  # the engine's own draws, but chain 0 accepts every finite proposal
-        for _ in range(ATTEMPTS):
-            p0 = torch.randn(state.x.shape, generator=gen, device=dev) * math.sqrt(hcfg.m)
-            u = torch.rand((CHAINS,), generator=gen, device=dev)
-            u[0] = 0.0
-            yield p0, u
-
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run = {}  # forward hooks count every GN+SiLU and GroupNorm32 call, recomputes included
-    with plain_calls(gn) as plain:
+    with plain_calls() as plain:
         gn_calls, _, norm_calls = kc.count_sites(model, lambda: run.setdefault(
-            "out", engine.run_hmc(loss_fn, hcfg, state, gen, draws=draws(), callback=timed)))
+            "out", engine.run_hmc(loss_fn, hcfg, state, gen, callback=timed,
+                                  draws=accepting_draws(engine, [gen], state.x, ATTEMPTS, [0]))))
     out = run["out"]
     torch.cuda.synchronize()
     launches = {k: f.launches for k, f in counters.items()}
@@ -1310,11 +1905,11 @@ def main():
     print(f"main path K2a launches per energy+grad eval by shape (hooks; GN+SiLU, then "
           f"GroupNorm32): { {str(k): v / n_evals for k, v in sorted(gn_calls.items())} }, "
           f"{ {str(k): v / n_evals for k, v in sorted(norm_calls.items())} }; plain "
-          f"K2a calls {plain}")
+          f"version calls {plain}")
     check(launches["gn_stats"] == n_silu + n_norm and launches["gn_apply"] == n_silu,
           f"K2a launched {launches['gn_stats']} times and K2b {launches['gn_apply']} for "
           f"{n_silu} GN+SiLU and {n_norm} GroupNorm32 calls")
-    check(not any(plain.values()), f"K2a's plain versions ran on the card: {plain}")
+    check(not any(plain.values()), f"plain versions ran on the card: {plain}")
     for k, v in launches.items():
         if k in on_path:
             check(v > 0, f"kernel {k} was never launched on the main path")
@@ -1398,21 +1993,11 @@ def main():
         for dt in (torch.bfloat16, torch.float32):
             dname = str(dt).split(".")[1]
             x = (1.5 * torch.randn((b, r, cc), generator=g, device=dev) + 0.3).to(dt)
-            mean_c, inv_c = gn.group_combine(gn.channel_stats_plain(x), r)
-            for form in ("per_channel", "per_batch_channel"):
-                shape = (cc,) if form == "per_channel" else (b, cc)
-                sc = 1 + 0.3 * torch.randn(shape, generator=g, device=dev)
-                bi = 0.3 * torch.randn(shape, generator=g, device=dev)
-                y_k = gn.normalize_silu(x, mean_c, inv_c, sc, bi)
-                y_p = gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
-                diff = (y_k.float() - y_p.float()).abs()
-                if dt == torch.float32:
-                    ok = bool((diff <= 1e-4).all())
-                else:  # one bf16 rounding step apart: |d| <= 2^-7 |y| + 1e-3
-                    ok = bool((diff <= 2 ** -7 * y_p.float().abs() + 1e-3).all())
-                check(ok, f"K2b {(b, r, cc)} {dname} {form}: apply max {float(diff.max()):.2e}")
+            for form in kc.AFFINE_FORMS:
+                ok, err = apply_check(torch, gn, x, form, g)
+                check(ok, f"K2b {(b, r, cc)} {dname} {form}: apply max {err:.2e}")
                 key = ("gn_apply", dname, (b, r, cc))
-                worst[key] = max(worst.get(key, 0.0), float(diff.max()))
+                worst[key] = max(worst.get(key, 0.0), err)
     top = lambda kern, dname: max(v for k, v in worst.items() if k[:2] == (kern, dname))
     print(f"K2b: {len(gn_shapes)} main-path shapes x (bf16, f32) x (per-channel, "
           f"per-(batch, channel) affine) agree: worst abs err f32 "
@@ -1577,6 +2162,25 @@ def main():
     phase_cli(np, d, "sr4")
     print(f"phase 8 (the forward operators) took {time.time() - t0:.1f} s")
 
+    # ---- 9. the rest of the noise-space samplers and solvers ---------------------------------
+    t0 = time.time()
+    model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
+    model.load_state_dict(weights)
+    model = model.to(dev).eval()
+    def f32_decoder():
+        model32 = unet.UNetModel(mcfg)
+        model32.load_state_dict(weights)
+        model32 = model32.to(dev).eval()
+        return model32, ddim.make_decoder(model32, sched, seq)
+
+    p9 = Phase9(torch, np, engine, attn, gn, kc, model, ddim.make_decoder(model, sched, seq),
+                counters, x_orig, d, c, sigma_0, card, f32_decoder)
+    phase_noise_space(p9, hcfg)
+    del model, p9.model, p9.decode
+    phase_latent_checkpoint_cli(p9)
+    print(f"phase 9 (the rest of the noise-space samplers and solvers) took "
+          f"{time.time() - t0:.1f} s")
+
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
         if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
@@ -1598,7 +2202,8 @@ def main():
                "probe_mma_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:198")}
     # each HMC run's launch counts by kernel, each kernel counted where it launches
     paths = {"flagship bf16": launches, "latent bf16": latent_bf16["launches"],
-             "latent f32": latent_f32["launches"]}
+             "latent f32": latent_f32["launches"],
+             **{f"phase 9 {k}": r_["launches"] for k, r_ in p9.records.items()}}
 
     kernels = []
     for name, (route, src, replaces) in sources.items():
@@ -1643,7 +2248,10 @@ def main():
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
         "latent_path": {**path_record(latent_bf16), "quantizer_codes_differing": code_share},
         "latent_path_f32": path_record(latent_f32), "operator_paths": operator_paths,
-        "kernel_wizard": kernel_wizard}))
+        "kernel_wizard": kernel_wizard,
+        "noise_space_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
+                              for k, r_ in p9.records.items()},
+        "batch16_gradient_noise": p9.batch_noise}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,17 @@
-"""Experiment entry point: pixel noise-space HMC (port of the `--algo hmc` path
-of nshmc_tpu/cli.py) and, through cli_latent.py, latent noise-space HMC
+"""Experiment entry point: the noise-space samplers and solvers of
+nshmc_tpu/cli.py in the pixel space (`--algo hmc`, `hmc_cond`, `dmplug_adam`,
+`dmplug_lbfgs`) and, through cli_latent.py, in the latent space
 (`--algo hmc_latent`).
 
-Parses the JAX CLI's flags for those paths, loads the YAML config, builds
-the ADM U-Net prior and the degradation, synthesizes y0 = H(x) + sigma_0 *
-noise (sigma_0 doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does),
-runs the chains as one batch, and writes {idx}.png, orig_{idx}.png,
-y0_{idx}.png, std_dev_map_{idx}.png, metrics.jsonl and a final
-{"summary": ...} line. Runs on CUDA unless `--device cpu` is given.
+Parses the JAX CLI's flags, loads the YAML config, builds the ADM U-Net
+prior and the degradation, synthesizes y0 = H(x) + sigma_0 * noise (sigma_0
+doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does), runs the
+chains as one batch (or in waves, `--chain_chunk`), and writes
+{idx}.png, orig_{idx}.png, y0_{idx}.png, std_dev_map_{idx}.png,
+metrics.jsonl and a final {"summary": ...} line; with `--save_epochs` the
+per-accept hmc_{e}.png and hmc_trail_{idx}.json, with `--diagnostics`
+diagnostics_{idx}.json. `--checkpoint-dir` snapshots and resumes each
+image's chains. Runs on CUDA unless `--device cpu` is given.
 
 Run:  python -m nshmc_tpu_torch.cli --algo hmc --deg inpaint_random \
           --config configs/ffhq.yaml -i out/
@@ -24,19 +28,13 @@ import numpy as np
 import torch
 import yaml
 
-# flags of the JAX CLI that this port does not implement yet (ROADMAP.md)
-_UNPORTED_FLAGS = {"checkpoint_dir": ("--checkpoint-dir", ""),
-                   "save_epochs": ("--save_epochs", False),
-                   "diagnostics": ("--diagnostics", False),
-                   "image_batch": ("--image_batch", 1), "mesh": ("--mesh", 0),
-                   "adapt": ("--adapt", "none")}
-
 
 def get_parser():
     p = argparse.ArgumentParser(description="nshmc_tpu_torch sampling CLI")
     p.add_argument("--config", default="configs/ffhq.yaml")
     p.add_argument("--algo", default="hmc",
-                   help="hmc | hmc_latent (the ported samplers)")
+                   help="hmc | hmc_cond | hmc_latent | dmplug_adam | dmplug_lbfgs (the "
+                        "ported samplers and solvers; the iterative baselines raise)")
     p.add_argument("--deg", default="inpaint_random",
                    help="degradation: srN (N x N block averaging) | sr_bicubicN | "
                         "inpaint_random | inpaint_box | deblur_gauss | deblur_aniso | "
@@ -60,45 +58,75 @@ def get_parser():
     p.add_argument("--latent_full_grad", action="store_true",
                    help="differentiate through the latent eps-net in hmc_latent (the "
                         "reference stop-grads it; default off)")
+    p.add_argument("--lbfgs_epochs", type=int, default=300,
+                   help="DMPlug L-BFGS outer budget")
+    p.add_argument("--lbfgs_inner", type=int, default=20,
+                   help="DMPlug L-BFGS inner iterations per outer step")
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("-i", "--image_folder", default="out")
     p.add_argument("--subset_start", type=int, default=0)
     p.add_argument("--subset_end", type=int, default=1)
     p.add_argument("--chains", type=int, default=1,
                    help="HMC chains, run as the batch axis of each U-Net call")
+    p.add_argument("--image_batch", type=int, default=1,
+                   help="run HMC on N images at once: N x chains as one batch")
+    p.add_argument("--mesh", type=int, default=0,
+                   help="shard chains over N devices (not ported: ROADMAP.md Queue 1 item 6)")
     p.add_argument("--ckpt", default="",
                    help="reference checkpoint (random init if absent)")
+    p.add_argument("--checkpoint-dir", default="",
+                   help="chain-state snapshot dir: snapshot every 10 attempts and at the "
+                        "end, and resume from it")
+    p.add_argument("--verbose", action="store_true", help="per-attempt progress prints")
+    p.add_argument("--save_epochs", action="store_true",
+                   help="save hmc_{epoch}.png per accepted proposal of chain 0 and a "
+                        "psnr/sigma_y trail json")
+    p.add_argument("--adapt", default="none", choices=["none", "da"],
+                   help="'da' = dual-averaged shared step size during annealing "
+                        "(replaces the x0.95 backoff; ignored where --checkpoint-dir, "
+                        "--verbose, --save_epochs or --driver observed pick the observed "
+                        "driver, as in the JAX CLI)")
+    p.add_argument("--diagnostics", action="store_true",
+                   help="report split-R-hat/ESS over chains x kept samples")
+    p.add_argument("--driver", default="auto", choices=["auto", "jit", "observed"],
+                   help="accepted for the JAX CLI's command lines; it picks an XLA program "
+                        "form there and nothing here, where every run is the host loop, "
+                        "except that 'observed' takes precedence over --adapt da as there")
+    p.add_argument("--attempts_per_round", type=int, default=1,
+                   help="MH attempts between progress callbacks and snapshot checks "
+                        "(statistics unchanged)")
+    p.add_argument("--chain_chunk", type=int, default=0,
+                   help="send the chains through the networks in sequential waves of this "
+                        "size (the chain count a multiple of it; statistics unchanged)")
+    p.add_argument("--unroll_ladder", default="auto",
+                   help="accepted for the JAX CLI's command lines; it picks the DDIM "
+                        "ladder's XLA program form there and does nothing here")
     p.add_argument("--data_path", default="", help="override the config's data.path")
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--no-bf16", dest="bf16", action="store_false")
-    p.add_argument("--verbose", action="store_true", help="per-attempt progress prints")
     p.add_argument("--device", default="cuda", help="torch device (cuda | cpu)")
-    # not ported yet: accepted so that a JAX command line fails with a pointer
-    p.add_argument("--checkpoint-dir", default="", help="not ported (ROADMAP.md)")
-    p.add_argument("--save_epochs", action="store_true", help="not ported (ROADMAP.md)")
-    p.add_argument("--diagnostics", action="store_true", help="not ported (ROADMAP.md)")
-    p.add_argument("--image_batch", type=int, default=1, help="not ported (ROADMAP.md)")
-    p.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP.md)")
-    p.add_argument("--adapt", default="none", help="not ported (ROADMAP.md)")
     return p
 
 
 LATENT_ALGOS = ("hmc_latent", "resample", "resample_original")
+PIXEL_ALGOS = ("hmc", "hmc_cond", "dmplug_adam", "dmplug_lbfgs")
+BASELINE_ALGOS = ("ddnm", "ddrm", "dps", "pigdm", "dmps", "reddiff", "diffpir", "daps",
+                  "resample", "resample_original")
 
 
 def _check_ported(opt):
-    if opt.algo in LATENT_ALGOS[1:]:
+    if opt.algo in BASELINE_ALGOS:
         raise NotImplementedError(
-            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; the latent path runs "
-            "'hmc_latent' only (ROADMAP.md, Queue 1 item 4: the baseline algorithms)")
-    if opt.algo not in ("hmc", "hmc_latent"):
+            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet: the iterative baseline "
+            "algorithms are ROADMAP.md, Queue 1 item 4")
+    if opt.algo not in PIXEL_ALGOS + LATENT_ALGOS:
         raise NotImplementedError(
-            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet; only the 'hmc' and "
-            "'hmc_latent' samplers are (ROADMAP.md, Queue 1)")
-    for dest, (flag, default) in _UNPORTED_FLAGS.items():
-        if getattr(opt, dest) != default:
-            raise NotImplementedError(
-                f"{flag} is not ported to nshmc_tpu_torch yet (ROADMAP.md, Queue 1)")
+            f"--algo {opt.algo} is not an algorithm of nshmc_tpu_torch; the ported ones are "
+            f"{', '.join(PIXEL_ALGOS + LATENT_ALGOS[:1])} (ROADMAP.md, Queue 1)")
+    if opt.mesh > 1:
+        raise NotImplementedError(
+            "--mesh is not ported to nshmc_tpu_torch yet: sharding chains over devices is "
+            "ROADMAP.md, Queue 1 item 6")
 
 
 def _device(name: str) -> torch.device:
@@ -189,12 +217,12 @@ def build_pixel_model(cfg, opt, device):
 
 
 def run_pixel(opt):
-    from .hmc.engine import HMCConfig, init_chains, make_pixel_loss_fn, run_hmc
+    from .hmc.engine import HMCConfig
     from .operators import build_operator
     from .sampling.ddim import make_decoder
     from .schedules import DDIMSequence, DiffusionSchedule
     from .utils import images as im
-    from .utils.metrics import RunningStats, psnr
+    from .utils.metrics import RunningStats
 
     _check_ported(opt)
     device = _device(opt.device)
@@ -219,27 +247,142 @@ def run_pixel(opt):
     files = files[opt.subset_start:opt.subset_end]
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
+    if opt.algo == "hmc" and opt.image_batch > 1:
+        return _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
+                                      device, stats)
+    run = {"hmc": _pixel_hmc, "hmc_cond": _pixel_hmc_cond}.get(opt.algo, _pixel_dmplug)
     for idx, path in enumerate(files):
         host, gen = image_generators(opt.seed + idx, device)
         x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
-        orig01 = torch.from_numpy(x01)[None]
-
-        def report(states, rnd):
-            dec01 = im.inverse_data_transform(states.last_decoded[:1]).cpu()
-            print(f"  attempt {rnd}: epoch {int(states.epoch[0])} "
-                  f"PSNR {float(psnr(dec01, orig01)[0]):.2f} "
-                  f"sigma_y {float(states.sigma_y[0]):.3f} "
-                  f"tau {float(states.tau[0]):.3f}")
-
         t0 = time.time()
-        loss_fn = make_pixel_loss_fn(decode, operator, y0[0])
-        states = init_chains(hmc_cfg, opt.chains, (d, d, c), device,
-                             x=host_randn((opt.chains, d, d, c), host, device))
-        out = run_hmc(loss_fn, hmc_cfg, states, gen,
-                      callback=report if opt.verbose else None)
-        samples01 = im.inverse_data_transform(out.samples.reshape(-1, d, d, c)).cpu()
+        x_t = host_randn((opt.chains if opt.algo.startswith("hmc") else 1, d, d, c), host,
+                         device)
+        samples = run(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen)
+        samples01 = im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu()
         record(opt, idx, path, samples01, x01, time.time() - t0, stats)
 
+    summary = stats.summary()
+    print(json.dumps({"summary": summary}))
+    return summary
+
+
+def _pixel_hmc(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
+    """--algo hmc on one image (nshmc_tpu/cli.py:317-436): the observed
+    driver's progress, trail and snapshots where a flag asks for them, else
+    dual averaging with --adapt da, else the plain run; then the
+    diagnostics. Returns the kept samples."""
+    from .hmc.engine import init_chains, make_pixel_loss_fn, run_hmc
+    from .utils import images as im
+    from .utils.metrics import psnr
+
+    loss_fn = make_pixel_loss_fn(decode, operator, y0[0])
+    states = init_chains(hmc_cfg, x_t.shape[0], x_t.shape[1:], x_t.device, x=x_t)
+    waves = dict(attempts_per_round=opt.attempts_per_round, chain_chunk=opt.chain_chunk)
+    if opt.checkpoint_dir or opt.verbose or opt.save_epochs or opt.driver == "observed":
+        if opt.adapt == "da":
+            print("  --adapt da ignored: --checkpoint-dir, --verbose, --save_epochs or "
+                  "--driver observed runs the observed driver (as the JAX CLI does)")
+        orig01 = torch.from_numpy(x01)[None]
+        # chain 0's trail: one entry and one hmc_{e-1}.png per new accepted epoch
+        trail = {"epoch": [], "psnr": [], "sigma_y": [], "tau": []}
+
+        def report(states, rnd):
+            e = int(states.epoch[0])
+            dec01 = im.inverse_data_transform(states.last_decoded[:1]).cpu()
+            p = float(psnr(dec01, orig01)[0])
+            if opt.verbose:
+                print(f"  attempt {rnd}: epoch {e} PSNR {p:.2f} "
+                      f"sigma_y {float(states.sigma_y[0]):.3f} "
+                      f"tau {float(states.tau[0]):.3f}")
+            if e > 0 and e > (trail["epoch"] or [-1])[-1]:
+                for k, v in (("epoch", e), ("psnr", p), ("sigma_y", float(states.sigma_y[0])),
+                             ("tau", float(states.tau[0]))):
+                    trail[k].append(v)
+                if opt.save_epochs:
+                    im.save_image(dec01[0], os.path.join(opt.image_folder, f"hmc_{e - 1}.png"))
+
+        out = run_hmc(loss_fn, hmc_cfg, states, gen,
+                      callback=report if (opt.verbose or opt.save_epochs) else None,
+                      checkpoint_dir=(os.path.join(opt.checkpoint_dir, f"img{idx}")
+                                      if opt.checkpoint_dir else ""), **waves)
+        if trail["epoch"]:
+            with open(os.path.join(opt.image_folder, f"hmc_trail_{idx}.json"), "w") as f:
+                json.dump(trail, f)
+    elif opt.adapt == "da":
+        from .hmc.adaptation import run_hmc_dual_averaging
+
+        out, da = run_hmc_dual_averaging(loss_fn, hmc_cfg, states, generator=gen)
+        print(f"  dual-averaged eps: {float(torch.exp(da.log_eps_avg)):.4f} "
+              f"({int(da.t)} rounds)")
+    else:
+        out = run_hmc(loss_fn, hmc_cfg, states, gen, **waves)
+    if opt.diagnostics and opt.chains > 1 and out.samples.shape[1] >= 4:
+        from .utils.diagnostics import format_summary, summarize_chains
+
+        diag = summarize_chains(out.samples)
+        print(f"  diagnostics: {format_summary(diag)}")
+        with open(os.path.join(opt.image_folder, f"diagnostics_{idx}.json"), "w") as f:
+            json.dump(diag, f)
+    return out.samples
+
+
+def _pixel_hmc_cond(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
+    """--algo hmc_cond: mass-conditioned HMC (nshmc_tpu/cli.py:299-314)."""
+    from .hmc.adaptation import (ConditionedHMCConfig, init_conditioned_chains,
+                                 run_conditioned_hmc)
+    from .hmc.engine import make_pixel_loss_fn
+
+    ccfg = ConditionedHMCConfig(sigma_0=hmc_cfg.sigma_0, tau=opt.tau, epsilon=opt.epsilon,
+                                epochs=opt.hmc_epochs, sampling=opt.hmc_sampling)
+    states = init_conditioned_chains(ccfg, x_t.shape[0], x_t.shape[1:], x_t.device, x=x_t)
+    out = run_conditioned_hmc(make_pixel_loss_fn(decode, operator, y0[0]), ccfg, states, gen,
+                              chain_chunk=opt.chain_chunk)
+    return out.samples
+
+
+def _pixel_dmplug(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
+    """--algo dmplug_adam / dmplug_lbfgs from x_t (nshmc_tpu/cli.py:442-462).
+    Returns the decoded image."""
+    from .solvers import dmplug
+
+    def loss_and_decode(x):
+        x0 = decode(x)
+        return torch.sum((y0 - operator.H_img(x0)) ** 2), x0
+
+    if opt.algo == "dmplug_adam":
+        return dmplug.dmplug_adam(loss_and_decode, x_t)[1]
+    return dmplug.dmplug_lbfgs(loss_and_decode, x_t, epochs=opt.lbfgs_epochs,
+                               max_inner=opt.lbfgs_inner)[1]
+
+
+def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0, device,
+                           stats):
+    """--image_batch N: N images x chains as one batch (run_hmc_multi,
+    nshmc_tpu/cli.py:540-616). Each image draws y0's noise, its initial
+    state and its momenta from its own generators, as it would alone."""
+    from .hmc.engine import init_chains, make_pixel_loss_fn, run_hmc_multi
+    from .utils import images as im
+
+    for start in range(0, len(files), opt.image_batch):
+        batch = list(enumerate(files[start:start + opt.image_batch], start))
+        xs, y0s, gens, origs = [], [], [], []
+        for idx, path in batch:
+            host, gen = image_generators(opt.seed + idx, device)
+            x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
+            xs.append(host_randn((opt.chains, d, d, c), host, device))
+            y0s.append(y0)
+            gens.append(gen)
+            origs.append(x01)
+        states = init_chains(hmc_cfg, len(batch) * opt.chains, (d, d, c), device,
+                             x=torch.cat(xs))
+        t0 = time.time()
+        out = run_hmc_multi(lambda y: make_pixel_loss_fn(decode, operator, y), hmc_cfg,
+                            states, torch.cat(y0s), gens)
+        dt = (time.time() - t0) / len(batch)
+        for bi, (idx, path) in enumerate(batch):
+            samples = out.samples[bi * opt.chains:(bi + 1) * opt.chains]
+            record(opt, idx, path, im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu(),
+                   origs[bi], dt, stats)
     summary = stats.summary()
     print(json.dumps({"summary": summary}))
     return summary

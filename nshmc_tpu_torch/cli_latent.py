@@ -3,7 +3,8 @@ nshmc_tpu/cli_latent.py; `python -m nshmc_tpu_torch.cli` dispatches here).
 
 Builds the LDM (latent U-Net + VQ-f4 first stage, f32, random weights from
 seed 0 unless the config's checkpoint exists), samples z_T at the latent
-shape, runs latent noise-space HMC with the chains as one batch, decodes
+shape, runs latent noise-space HMC with the chains as one batch (or in waves,
+`--chain_chunk`; snapshots and resume under `--checkpoint-dir`), decodes
 the kept z0 latents (or, where no chain kept one, the final chain states
 through the DDIM ladder) with the VQ decoder, and writes the pixel CLI's
 artifacts, metrics.jsonl and {"summary": ...} line.
@@ -119,8 +120,13 @@ def run_latent(opt):
         loss_fn = make_latent_loss_fn(decode_z, ldm.decode_first_stage, operator, y0[0])
         states = init_latent_chains(hmc_cfg, opt.chains, z_shape, device,
                                     z=host_randn((opt.chains, *z_shape), host, device))
+        # --save_epochs is accepted and unused, as in the JAX latent CLI
         out = run_latent_hmc(loss_fn, hmc_cfg, states, gen,
-                             callback=report if opt.verbose else None)
+                             callback=report if opt.verbose else None,
+                             checkpoint_dir=(os.path.join(opt.checkpoint_dir, f"img{idx}")
+                                             if opt.checkpoint_dir else ""),
+                             attempts_per_round=opt.attempts_per_round,
+                             chain_chunk=opt.chain_chunk)
         z_samples = extract_kept_samples(out.samples.cpu().numpy(), out.n_kept.cpu().numpy())
         with torch.no_grad():
             if z_samples.shape[0] == 0:

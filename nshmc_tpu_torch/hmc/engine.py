@@ -7,23 +7,36 @@ chain carries its own epoch, step size, rejection count and MH decision
   - sigma_y = sigma_0 + 1.6 (1 - e/E)^2 during the first E epochs, then
     sigma_0; at e == E, (tau, eps) switch once to (0.1, 0.01);
   - after 2 consecutive rejections tau and eps decay by 0.95 (and keep
-    decaying on each further rejection);
+    decaying on each further rejection, unless reset_rejected_after_backoff);
   - L = floor(tau_0 / eps_0) leapfrog steps, fixed up front;
   - U(x) = ||x||^2/2 + ||y0 - H(decode(x))||^2 / (2 sigma_y^2),
-    K(p) = ||p||^2 / (2m); the stored sample of an accepted proposal is the
-    decoded image of its last energy evaluation; NaN energies reject.
+    K(p) = sum p^2 / (2 M) with M = m or a diagonal metric; the stored
+    sample of an accepted proposal is the decoded image of its last energy
+    evaluation; NaN energies reject.
 
 Randomness comes from a `torch.Generator`; `leapfrog_propose`,
-`hmc_attempt` and `run_hmc` also take the momentum and accept-uniform
-draws as inputs, so a test can replay the JAX package's draws.
+`hmc_attempt` and the drivers also take the momentum and accept-uniform
+draws as inputs, so a test can replay the JAX package's draws. An injected
+momentum is the UNIT normal: the engine scales it by sqrt(M) itself, as the
+JAX package scales its own draw. Each attempt draws the momenta of all
+chains and then their uniforms, in that order, so a run whose chains go
+through the U-Net in waves (`chain_chunk`) equals one that does not.
+
+`run_hmc` is also the port of the JAX package's observed driver
+(`run_hmc_observed`): a host loop that calls back after each round of
+`attempts_per_round` attempts and, with a `checkpoint_dir`, snapshots the
+chain state and the generator's state every `checkpoint_every` attempts and
+at the end, and resumes from the snapshot.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
+
+from ..utils import checkpointing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +54,7 @@ class HMCConfig:
     post_tau: float = 0.1
     post_epsilon: float = 0.01
     backoff: float = 0.95
+    reset_rejected_after_backoff: bool = False
     max_attempts: int = 1000
 
     @property
@@ -104,11 +118,13 @@ LossFn = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 def make_pixel_loss_fn(decode, operator, y0: torch.Tensor) -> LossFn:
     """U_data(x) = ||y0 - H(decode(x))||^2 per chain
-    (nshmc_tpu/hmc/engine.py:111-120). y0: (d_y,)."""
+    (nshmc_tpu/hmc/engine.py:111-120). y0: (d_y,), shared by every chain, or
+    (N, d_y), one row per chain (`run_hmc_multi`)."""
+    y0 = y0[None] if y0.dim() == 1 else y0
 
     def loss_fn(x):
         x0 = decode(x)
-        residual = y0[None] - operator.H_img(x0)
+        residual = y0 - operator.H_img(x0)
         return torch.sum(residual**2, dim=1), x0
 
     return loss_fn
@@ -129,6 +145,26 @@ def _sum_chain(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1).sum(dim=1)
 
 
+# --- chain states as a whole (any dataclass whose fields have the chain axis first) ---
+
+def _replace(state, fn):
+    return type(state)(**{f.name: fn(f.name, getattr(state, f.name))
+                          for f in dataclasses.fields(state)})
+
+
+def _select(mask: torch.Tensor, new, old):
+    """Per chain: `new` where `mask`, else `old`."""
+    return _replace(old, lambda name, o: torch.where(_per_chain(mask, o), getattr(new, name), o))
+
+
+def _chains(state, start: int, stop: int):
+    return _replace(state, lambda name, v: v[start:stop])
+
+
+def _concat(states: Sequence):
+    return _replace(states[0], lambda name, v: torch.cat([getattr(s, name) for s in states]))
+
+
 def value_and_grad(loss_fn: LossFn, x: torch.Tensor):
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
@@ -137,34 +173,57 @@ def value_and_grad(loss_fn: LossFn, x: torch.Tensor):
     return loss.detach(), dec.detach(), grad
 
 
+def draw_attempt(generator: Optional[torch.Generator], x: torch.Tensor):
+    """One attempt's draws for the chains of `x`: unit-normal momenta like
+    x, then the accept uniforms (N,), in the order leapfrog_propose draws
+    them."""
+    p0 = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    u = torch.rand((x.shape[0],), generator=generator, device=x.device)
+    return p0, u
+
+
 def leapfrog_propose(loss_fn: LossFn, x: torch.Tensor, sigma_y: torch.Tensor,
                      eps: torch.Tensor, n_leapfrog: int, m: float = 1.0,
                      generator: Optional[torch.Generator] = None,
                      p0: Optional[torch.Tensor] = None,
-                     u: Optional[torch.Tensor] = None):
+                     u: Optional[torch.Tensor] = None,
+                     mass_diag: Optional[torch.Tensor] = None,
+                     collect_welford: bool = False):
     """One leapfrog trajectory + per-chain MH decision
     (nshmc_tpu/hmc/engine.py:131-195): half step, L full steps, half-step
-    correction. sigma_y, eps: (N,). p0 (N, ...) and u (N,) are drawn from
-    `generator` unless given. Returns (accept, xp, dec, loss, log_ratio)."""
+    correction. sigma_y, eps: (N,). The unit-normal momenta p0 (N, ...)
+    and the uniforms u (N,) are drawn from `generator` unless given; the
+    momenta are scaled by sqrt(M), M = mass_diag (N, ...) or m. Returns
+    (accept, xp, dec, loss, log_ratio), and with `collect_welford` also
+    (mean, m2): the Welford running mean and M2 of the L trajectory
+    positions (the mass-matrix adaptation's statistics)."""
     sigma_y, eps = _per_chain(sigma_y, x), _per_chain(eps, x)
     inv2s2 = 1.0 / (2.0 * sigma_y**2)
-    inv_mass = 1.0 / torch.tensor(m, dtype=x.dtype)
+    mass = (mass_diag if mass_diag is not None
+            else torch.tensor(m, dtype=x.dtype, device=x.device))
+    inv_mass = 1.0 / mass
 
     def kinetic(p):
         return 0.5 * _sum_chain(inv_mass * p**2)
 
     if p0 is None:
-        p0 = torch.randn(x.shape, generator=generator, dtype=x.dtype,
-                         device=x.device) * math.sqrt(m)
+        p0 = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+    p0 = p0 * torch.sqrt(mass)
     loss0, dec, grad = value_and_grad(loss_fn, x)
     h0 = 0.5 * _sum_chain(x**2) + inv2s2.flatten() * loss0 + kinetic(p0)
 
     p = p0 - (eps / 2.0) * (x + inv2s2 * grad)
     xp, loss = x, loss0
-    for _ in range(n_leapfrog):
+    if collect_welford:
+        mean = m2 = torch.zeros_like(x)
+    for step in range(n_leapfrog):
         xp = xp + eps * inv_mass * p
         loss, dec, grad = value_and_grad(loss_fn, xp)
         p = p - eps * (xp + inv2s2 * grad)
+        if collect_welford:
+            delta = xp - mean
+            mean = mean + delta / torch.tensor(step + 1, dtype=x.dtype)
+            m2 = m2 + delta * (xp - mean)
     p = p + (eps / 2.0) * (xp + inv2s2 * grad)  # undo the last half over-step
 
     h1 = 0.5 * _sum_chain(xp**2) + inv2s2.flatten() * loss + kinetic(p)
@@ -172,7 +231,20 @@ def leapfrog_propose(loss_fn: LossFn, x: torch.Tensor, sigma_y: torch.Tensor,
     if u is None:
         u = torch.rand((x.shape[0],), generator=generator, device=x.device)
     accept = (torch.log(u) < torch.clamp(log_ratio, max=0.0)) & torch.isfinite(log_ratio)
+    if collect_welford:
+        return accept, xp, dec, loss, log_ratio, (mean, m2)
     return accept, xp, dec, loss, log_ratio
+
+
+def write_samples(samples: torch.Tensor, write: torch.Tensor, idx: torch.Tensor,
+                  dec: torch.Tensor) -> torch.Tensor:
+    """samples[c, idx[c]] = dec[c] for the chains c where `write`."""
+    if not bool(write.any()):
+        return samples
+    samples = samples.clone()
+    rows = write.nonzero().flatten()
+    samples[rows, idx.long()[rows]] = dec[rows]
+    return samples
 
 
 def hmc_attempt(loss_fn: LossFn, cfg: HMCConfig, state: ChainState,
@@ -193,17 +265,15 @@ def hmc_attempt(loss_fn: LossFn, cfg: HMCConfig, state: ChainState,
     samples = state.samples
     if cfg.sampling > 0:
         sample_idx = state.epoch - (cfg.epochs + cfg.sampling)
-        write = accept & (sample_idx >= 0)
-        if bool(write.any()):
-            samples = samples.clone()
-            rows = write.nonzero().flatten()
-            idx = sample_idx.clamp(0, cfg.sampling - 1).long()[rows]
-            samples[rows, idx] = dec[rows]
+        samples = write_samples(samples, accept & (sample_idx >= 0),
+                                sample_idx.clamp(0, cfg.sampling - 1), dec)
 
     rejected = state.rejected + 1
     backoff = rejected >= 2
     tau_r = torch.where(backoff, tau * cfg.backoff, tau)
     eps_r = torch.where(backoff, eps * cfg.backoff, eps)
+    if cfg.reset_rejected_after_backoff:
+        rejected = torch.where(backoff, torch.zeros_like(rejected), rejected)
     acc_i = accept.to(torch.int32)
     img = lambda a: _per_chain(accept, a)
     new = ChainState(
@@ -227,28 +297,108 @@ def chains_active(cfg: HMCConfig, state: ChainState) -> torch.Tensor:
     return (state.epoch < cfg.total_epochs) & (state.attempts < cfg.max_attempts)
 
 
+Attempt = Callable[[object, torch.Tensor, torch.Tensor], object]
+# attempt(state, p0, u) -> new state, for the chains of `state`
+
+
+def attempt_in_waves(attempt: Attempt, state, p0: torch.Tensor, u: torch.Tensor,
+                     chain_chunk: int = 0):
+    """`attempt` over the chains in sequential waves of `chain_chunk` chains
+    (0: all at once), the draws already made for every chain, so the result
+    does not depend on the chunk (nshmc_tpu/hmc/engine.py:296-312). Each
+    wave's autograd graphs are freed before the next starts: the memory
+    high-water mark is one wave's."""
+    n = p0.shape[0]
+    if chain_chunk <= 0 or n <= chain_chunk:
+        return attempt(state, p0, u)
+    if n % chain_chunk != 0:
+        raise ValueError(f"chain count {n} not divisible by chain_chunk {chain_chunk}")
+    return _concat([attempt(_chains(state, a, a + chain_chunk), p0[a:a + chain_chunk],
+                            u[a:a + chain_chunk]) for a in range(0, n, chain_chunk)])
+
+
+def drive(attempt: Attempt, state, active: Callable, rounds: int, counter: str,
+          draw: Callable, draws: Optional[Iterable] = None, callback=None,
+          checkpoint_dir: str = "", checkpoint_every: int = 10,
+          attempts_per_round: int = 1, chain_chunk: int = 0,
+          generators: Sequence[torch.Generator] = ()):
+    """The observed host loop of every noise-space sampler
+    (nshmc_tpu/hmc/engine.py:315-408). Attempts until no chain is
+    `active(state)` or `rounds` attempts are done; a chain that is not
+    active keeps its state. `draw(state)` makes one attempt's (p0, u) unless
+    `draws` yields them. `callback(state, round)` runs after each round of
+    `attempts_per_round` attempts, a grouping that changes no statistic.
+    With `checkpoint_dir`, the state and the `generators`' states are saved
+    every `checkpoint_every` attempts (counted as the JAX driver counts
+    them) and at the end, and a run resumes from the saved snapshot at round
+    max(state.<counter>)."""
+    apr = max(1, int(attempts_per_round))
+    rnd = 0
+    if checkpoint_dir:
+        restored = checkpointing.load_chain_state(checkpoint_dir, state, generators=generators)
+        if restored is not None:
+            state = restored
+            rnd = int(getattr(state, counter).max())
+    draws = iter(draws) if draws is not None else None
+    since_save = 0
+    while rnd < rounds:
+        if not bool(active(state).any()):
+            break
+        for _ in range(apr):
+            live = active(state)
+            if not bool(live.any()):
+                break
+            p0, u = next(draws) if draws is not None else draw(state)
+            state = _select(live, attempt_in_waves(attempt, state, p0, u, chain_chunk), state)
+        rnd += apr
+        if callback is not None:
+            callback(state, rnd - 1)
+        since_save += apr
+        if checkpoint_dir and since_save >= checkpoint_every:
+            checkpointing.save_chain_state(checkpoint_dir, state, generators=generators)
+            since_save = 0
+    if checkpoint_dir:
+        checkpointing.save_chain_state(checkpoint_dir, state, generators=generators)
+    return state
+
+
 def run_hmc(loss_fn: LossFn, cfg: HMCConfig, state: ChainState,
             generator: Optional[torch.Generator] = None,
             draws: Optional[Iterable[Tuple[torch.Tensor, torch.Tensor]]] = None,
-            callback=None) -> ChainState:
+            callback=None, checkpoint_dir: str = "", checkpoint_every: int = 10,
+            attempts_per_round: int = 1, chain_chunk: int = 0) -> ChainState:
     """Run every chain to its epoch budget, at most cfg.max_attempts
-    attempts (the host loop of nshmc_tpu/hmc/engine.py:315-408). A finished
-    chain keeps its state while the others go on (it still rides along in
-    the batch). `draws` optionally yields one (p0, u) per attempt round;
-    `callback(state, round)` runs after each round."""
-    draws = iter(draws) if draws is not None else None
-    rnd = 0
-    while rnd < cfg.max_attempts:
-        active = chains_active(cfg, state)
-        if not bool(active.any()):
-            break
-        p0, u = next(draws) if draws is not None else (None, None)
-        new, _ = hmc_attempt(loss_fn, cfg, state, generator, p0, u)
-        state = ChainState(**{
-            name: torch.where(_per_chain(active, val), val, old)
-            for (name, val), old in zip(new.fields().items(), state.fields().values())
-        })
-        if callback is not None:
-            callback(state, rnd)
-        rnd += 1
-    return state
+    attempts (`drive`). A finished chain keeps its state while the others
+    go on (it still rides along in the batch). `draws` optionally yields one
+    (unit-normal p0, u) per attempt; `callback(state, round)` runs after
+    each round. `chain_chunk` > 0 sends the chains through the U-Net in
+    waves of that many; N must be a multiple of it."""
+    return drive(lambda s, p0, u: hmc_attempt(loss_fn, cfg, s, p0=p0, u=u)[0], state,
+                 lambda s: chains_active(cfg, s), cfg.max_attempts, "attempts",
+                 lambda s: draw_attempt(generator, s.x), draws, callback, checkpoint_dir,
+                 checkpoint_every, attempts_per_round, chain_chunk,
+                 (generator,) if generator is not None else ())
+
+
+def run_hmc_multi(loss_fn_builder, cfg: HMCConfig, state: ChainState, y0s: torch.Tensor,
+                  generators: Sequence[torch.Generator] = (),
+                  draws: Optional[Iterable[Tuple[torch.Tensor, torch.Tensor]]] = None,
+                  callback=None) -> ChainState:
+    """I images x N chains as one batch of I * N chains, image-major
+    (nshmc_tpu/hmc/engine.py:282-293). y0s: (I, d_y); image i's chains see
+    its row through `loss_fn_builder(y0 rows (I * N, d_y))`. Image i's
+    chains draw from `generators[i]`, so each image's chains take the draws
+    it would take run alone with that generator; `draws` optionally yields
+    one (p0, u) of all I * N chains per attempt."""
+    n_images = y0s.shape[0]
+    per_image = state.x.shape[0] // n_images
+    loss_fn = loss_fn_builder(y0s.repeat_interleave(per_image, dim=0))
+
+    def draw(s):
+        parts = [draw_attempt(g, s.x[i * per_image:(i + 1) * per_image])
+                 for i, g in enumerate(generators)]
+        return torch.cat([p for p, _ in parts]), torch.cat([u for _, u in parts])
+
+    return drive(lambda s, p0, u: hmc_attempt(loss_fn, cfg, s, p0=p0, u=u)[0], state,
+                 lambda s: chains_active(cfg, s), cfg.max_attempts, "attempts", draw, draws,
+                 callback)

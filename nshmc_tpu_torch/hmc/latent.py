@@ -20,8 +20,11 @@ stop-gradient (the reference's @torch.no_grad apply_model) is the caller's
 model_fn (models/ldm/ldm.py::LatentDiffusion.model_fn).
 
 Randomness comes from a `torch.Generator`; `latent_hmc_attempt` and
-`run_latent_hmc` also take the momentum and accept-uniform draws as inputs,
-so a test can replay the JAX package's draws.
+`run_latent_hmc` also take the (unit-normal) momentum and accept-uniform
+draws as inputs, so a test can replay the JAX package's draws.
+`run_latent_hmc` is also the port of `run_latent_hmc_observed`: snapshots
+and resume, rounds of `attempts_per_round` attempts and chain waves, through
+the pixel engine's host loop (`engine.drive`).
 """
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
-from .engine import LossFn, _per_chain, leapfrog_propose
+from .engine import LossFn, _per_chain, draw_attempt, drive, leapfrog_propose
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,17 +156,20 @@ def latent_hmc_attempt(loss_fn: LossFn, cfg: LatentHMCConfig, state: LatentChain
 def run_latent_hmc(loss_fn: LossFn, cfg: LatentHMCConfig, state: LatentChainState,
                    generator: Optional[torch.Generator] = None,
                    draws: Optional[Iterable[Tuple[torch.Tensor, torch.Tensor]]] = None,
-                   callback=None) -> LatentChainState:
+                   callback=None, checkpoint_dir: str = "", checkpoint_every: int = 10,
+                   attempts_per_round: int = 1, chain_chunk: int = 0) -> LatentChainState:
     """Every chain's epochs + 2 * sampling attempts, one attempt for all
-    chains at a time. `draws` optionally yields one (p0, u) per attempt;
-    `callback(state, attempt)` runs after each."""
-    draws = iter(draws) if draws is not None else None
-    for rnd in range(int(state.attempt.max()), cfg.total_attempts):
-        p0, u = next(draws) if draws is not None else (None, None)
-        state = latent_hmc_attempt(loss_fn, cfg, state, generator, p0, u)
-        if callback is not None:
-            callback(state, rnd)
-    return state
+    chains at a time (nshmc_tpu/hmc/latent.py:164-239). `draws` optionally
+    yields one (unit-normal p0, u) per attempt; `callback(state, round)`
+    runs after each round of `attempts_per_round` attempts. With
+    `checkpoint_dir`, snapshots every `checkpoint_every` attempts and at the
+    end, and resumes at attempt max(state.attempt). `chain_chunk` > 0 sends
+    the chains through the networks in waves of that many."""
+    return drive(lambda s, p0, u: latent_hmc_attempt(loss_fn, cfg, s, p0=p0, u=u), state,
+                 lambda s: s.attempt < cfg.total_attempts, cfg.total_attempts, "attempt",
+                 lambda s: draw_attempt(generator, s.z), draws, callback, checkpoint_dir,
+                 checkpoint_every, attempts_per_round, chain_chunk,
+                 (generator,) if generator is not None else ())
 
 
 def make_latent_loss_fn(ddim_decode_z, decode_first_stage, operator, y0: torch.Tensor) -> LossFn:

@@ -48,9 +48,9 @@ def test_cli_hmc_runs_and_writes_artifacts(tmp_path, capsys):
     assert json.loads(last) == {"summary": summary}
 
 
-@pytest.mark.parametrize("flag", [["--algo", "ddnm"], ["--mesh", "2"], ["--image_batch", "2"],
-                                  ["--save_epochs"], ["--diagnostics"], ["--adapt", "da"],
-                                  ["--checkpoint-dir", "ck"]])
+@pytest.mark.parametrize("flag", [["--algo", "ddnm"], ["--mesh", "2"], ["--algo", "dps"],
+                                  ["--algo", "daps"], ["--algo", "diffpir"],
+                                  ["--algo", "reddiff"], ["--algo", "resample"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", *flag])

@@ -19,33 +19,13 @@ from nshmc_tpu_torch.hmc import engine
 from nshmc_tpu_torch.operators import build_operator
 from nshmc_tpu_torch.sampling.ddim import make_decoder
 from nshmc_tpu_torch.schedules import DDIMSequence, DiffusionSchedule
+from _torch_hmc_draws import replay_draws
 from test_torch_unet import jax_tiny, torch_tiny
 
 torch.set_num_threads(2)
 
 D = 16
 SHAPE = (D, D, 3)
-
-
-def replay_draws(key, n_chains, shape, n_attempts, m=1.0):
-    """The JAX engine's draws: x_T per chain (init_chains) and, per attempt,
-    the momentum p0 and uniform u of each chain (hmc_attempt ->
-    leapfrog_propose key splits). Returns x (N, ...), p0 (A, N, ...), u (A, N)."""
-    xs, p0s, us = [], [], []
-    for k in jax.random.split(key, n_chains):
-        kx, k = jax.random.split(k)
-        xs.append(np.asarray(jax.random.normal(kx, shape, jnp.float32)))
-        ps, uu = [], []
-        for _ in range(n_attempts):
-            k, k_prop = jax.random.split(k)
-            k_mom, k_acc = jax.random.split(k_prop)
-            ps.append(np.asarray(jax.random.normal(k_mom, shape, jnp.float32)
-                                 * jnp.sqrt(jnp.float32(m))))
-            uu.append(float(jax.random.uniform(k_acc)))
-        p0s.append(ps)
-        us.append(uu)
-    return (np.stack(xs), np.stack(p0s, axis=1).astype(np.float32),
-            np.asarray(us, np.float32).T)
 
 
 def _pixel_problem(seed=0):

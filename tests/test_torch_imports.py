@@ -34,7 +34,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "hmc/latent.py", "cli_latent.py",  # the latent path is checked too
                    "operators/base.py", "operators/linear.py", "operators/deblur.py",
                    "operators/cs.py", "operators/nonlinear.py", "operators/general.py",
-                   "operators/nonlinear_blur.py", "models/kernel_wizard.py"):
+                   "operators/nonlinear_blur.py", "models/kernel_wizard.py",
+                   # the noise-space samplers' and solvers' modules
+                   "hmc/adaptation.py", "utils/diagnostics.py", "utils/checkpointing.py",
+                   "solvers/dmplug.py", "solvers/__init__.py"):
         assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -93,6 +96,8 @@ def test_entry_points_default_to_cuda():
                   "nshmc_tpu_torch.schedules.DiffusionSchedule.from_alphas_cumprod",
                   "nshmc_tpu_torch.models.port.load_adm_checkpoint",
                   "nshmc_tpu_torch.hmc.latent.init_latent_chains",
+                  "nshmc_tpu_torch.hmc.adaptation.init_conditioned_chains",
+                  "nshmc_tpu_torch.hmc.adaptation.DualAveragingState.create",
                   "nshmc_tpu_torch.models.ldm.ldm.LatentDiffusion.create"):
         assert found.get(entry) == "cuda", (entry, found.get(entry))
     assert not [k for k, v in found.items() if str(v) == "cpu"], found
