@@ -96,7 +96,23 @@ It builds the port's kernels from the sources in this checkout and then:
      BASELINE config 4's shape, phase retrieval with 64 chains in waves of
      8; (e) 2 images x 8 chains as one batch against each image alone;
      (f) DMPlug Adam (10 steps) and L-BFGS (3 steps) at batch 1; (g) the
-     latent CLI with --checkpoint-dir run twice in this process.
+     latent CLI with --checkpoint-dir run twice in this process;
+ 10. the iterative baselines: (a) all ten (DDNM, DDRM, DPS, PiGDM, DMPS,
+     RED-diff, DiffPIR, DAPS, ReSample, the original ReSample) on the tiny
+     configs in f32, card against CPU on the same draws (bar
+     BASELINE_TOL); (b) each at full width and batch 1 through the port's
+     entry points, the eight pixel ones on the main path's model (bf16, 3
+     steps), ReSample (11 steps, its 300-step hard consistency at t = 180)
+     and the original sampler (20 steps, a pixel and a latent stage) on
+     the latent flagship in f32, every kernel count set to 0 just before
+     each run and read just after: K1, K2a and K2b launched, K2c exactly
+     where the algorithm differentiates a network (DPS, PiGDM, both
+     ReSamples), no plain version; wall s, network forwards and backwards,
+     peak memory, the branches taken, a finite output; (c) K1 f32 at the
+     latent U-Net's batch-1 shapes and K2a, K2b, K2c at its and the VQ
+     decoder's batch-1 f32 sites against their plain versions, each timed
+     at the U-Net's sites of C = 224 k; (d) the CLIs with --algo dps and
+     --algo resample.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
@@ -511,7 +527,8 @@ def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantiz
     loss_fn = latent.make_latent_loss_fn(decode_z, decode_x, op, y0[0])
     z_shape = (ucfg.image_size, ucfg.image_size, ucfg.in_channels)
     return types.SimpleNamespace(ldm=ldm, loss_fn=loss_fn, decode_z=decode_z, gen=gen,
-                                 z_shape=z_shape, z_t=host_randn((CHAINS, *z_shape), host, dev))
+                                 z_shape=z_shape, z_t=host_randn((CHAINS, *z_shape), host, dev),
+                                 op=op, y0=y0, host=host)
 
 
 def phase_latent_small(torch, np, engine):
@@ -794,7 +811,7 @@ def stats_record(v):
                 bound_ms=bms, bound_by=by)
 
 
-def gn_apply_times(torch, gn, x, eps):
+def gn_apply_times(torch, gn, x, eps, where="VQ decoder site"):
     """K2b at x (B, R, C), bf16 or f32: kernel and plain device ms from CUDA
     graphs (at the smaller sites the host's launch of a Triton kernel
     outlasts the kernel), the kernel's eager call (CUDA events, host
@@ -808,15 +825,15 @@ def gn_apply_times(torch, gn, x, eps):
     plain_run = lambda: gn.normalize_silu_plain(x, mean_c, inv_c, sc, bi)
     bms, by = bound_ms(2 * n * es + 4 * b * cc * 4, 8 * n, "float32")
     ms, plain, eager = time_ms_graph(run), time_ms_graph(plain_run), time_ms(run)
-    print(f"K2 apply {tuple(x.shape)} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA "
+    print(f"K2 apply {tuple(x.shape)} {dname} ({where}): kernel {ms:.4f} ms (CUDA "
           f"graphs; eager {eager:.4f}), plain {plain:.4f}, bound {bms:.4f} ({by}), "
           f"{100 * bms / ms:.0f}% of bound")
     return dict(shape=list(x.shape), dtype=dname, ms=ms, eager_ms=eager, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev):
-    """K2c's picked design at a VQ decoder site in dt: device ms from CUDA
+def gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev, where="VQ decoder site"):
+    """K2c's picked design at a site (`where`) in dt: device ms from CUDA
     graphs, the plain version's ms (CUDA events, as in phase 3), the
     three-pass bound, and
     the yardstick of phase 3 (the backward of F.group_norm + F.silu with a
@@ -836,7 +853,7 @@ def gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev):
     n, es = b * r * cc, dt.itemsize
     dname = str(dt).split(".")[1]
     bms, by = bound_ms(3 * n * es + 6 * b * cc * 4, GN_BWD_OPS * n, "float32")
-    print(f"K2c {design} {shape} {dname} (VQ decoder site): kernel {ms:.4f} ms (CUDA graphs), "
+    print(f"K2c {design} {shape} {dname} ({where}): kernel {ms:.4f} ms (CUDA graphs), "
           f"plain {plain:.4f}, bound {bms:.4f} ({by}), {100 * bms / ms:.0f}% of bound; "
           f"F.group_norm+F.silu backward {lib:.4f} ms")
     return dict(shape=list(shape), dtype=dname, ms=ms, plain_ms=plain, bound_ms=bms,
@@ -1752,6 +1769,371 @@ def phase_latent_checkpoint_cli(p):
               f"summary {second}; {p.card}")
 
 
+# ---- 10. the iterative baselines ----------------------------------------------------------------
+PIXEL_BASELINES = ("ddnm", "ddrm", "dps", "pigdm", "dmps", "reddiff", "diffpir", "daps")
+# the algorithms that differentiate a network (the U-Net, or the VQ decoder in both
+# ReSamples), so run K2c; the others differentiate the operator at most
+K2C_ALGOS = ("dps", "pigdm", "resample", "resample_original")
+# (a) card against CPU on the tiny configs, f32, the same injected draws: max |card - cpu|
+# within this share of max |cpu|, the CPU tests' bar for a trajectory through a network
+# (tests/_torch_algo_parity.py: each network call within atol 2e-4 + rtol 1e-3, carried
+# through the steps). The VQ decoder runs without its quantizer there: the argmin over the
+# codebook flips at near ties between card and CPU (phase 7(a)), a step, not a rounding
+BASELINE_TOL = 1e-3
+TINY_RESAMPLE_INNER = 50  # (a) the tiny hard-consistency solve: 50 steps, not 300
+# the new batch-1 f32 K2c sites whose C fits one kernel call (C = 224 k, k = 1-4)
+BATCH1_TIMED_C = (224, 448, 672, 896)
+
+
+class Counted:
+    """A network function that counts its forwards, and among them those
+    whose input requires grad (each differentiated once by the algorithms)."""
+
+    def __init__(self, fn):
+        self.fn, self.forwards, self.backwards = fn, 0, 0
+
+    def __call__(self, *args):
+        import torch
+
+        self.forwards += 1
+        self.backwards += int(torch.is_grad_enabled() and args[0].requires_grad)
+        return self.fn(*args)
+
+
+@contextlib.contextmanager
+def branch_counts():
+    """Count the branches the ReSamples take while the block runs: the
+    hard-consistency solves and the original sampler's pixel and latent
+    stages."""
+    from nshmc_tpu_torch.algos import resample
+    from nshmc_tpu_torch.sampling import resample_original as ro
+
+    seen = {"hard_consistency": 0, "pixel": 0, "latent": 0}
+    hard, stage = resample.ReSample._hard_consistency, ro.travel_stage
+
+    def counting_hard(self, *args):
+        seen["hard_consistency"] += 1
+        return hard(self, *args)
+
+    def counting_stage(*args):
+        out = stage(*args)
+        if out:
+            seen[out] += 1
+        return out
+
+    with swapped((resample.ReSample, "_hard_consistency", counting_hard),
+                 (ro, "travel_stage", counting_stage)):
+        yield seen
+
+
+def make_baseline(name, op, decode=None, sigma_0=0.1, **changes):
+    """A baseline of the CLIs' choices for inpainting (ReSample with the
+    decoder `decode`); `changes` replace its fields."""
+    from nshmc_tpu_torch.algos import build_algo
+    from nshmc_tpu_torch.algos.resample import ReSample
+
+    algo = (ReSample(operator=op, sigma_0=sigma_0, decode_fn=decode) if name == "resample"
+            else build_algo(name, op, sigma_0, "inpaint_random"))
+    return dataclasses.replace(algo, **changes)
+
+
+def run_baseline(torch, name, model_fn, schedule, seq, op, y0, x_t, generator=None, draws=None,
+                 decode=None, encode=None, **changes):
+    """One baseline through the port's entry points (iterative_sampling,
+    run_daps, resample_original_sample); `changes` replace the algorithm's
+    or the original sampler's fields."""
+    from nshmc_tpu_torch.algos import run_daps
+    from nshmc_tpu_torch.sampling import resample_original as ro
+    from nshmc_tpu_torch.sampling.loop import iterative_sampling
+
+    if name == "resample_original":
+        cfg = ro.ResampleOriginalConfig(**changes)
+        return ro.resample_original_sample(model_fn, schedule, decode, encode, op, y0, x_t, cfg,
+                                           generator, draws)
+    algo = make_baseline(name, op, decode, **changes)
+    if name == "daps":
+        return run_daps(model_fn, schedule, seq, algo, x_t, y0, generator, draws)
+    return iterative_sampling(model_fn, schedule, seq, algo, x_t, y0, generator, draws)
+
+
+def baseline_draws(torch, name, op, x, steps, **changes):
+    """`steps` steps of draws for `name` made on the CPU from a seeded
+    generator, in the order the algorithm's `draw` makes them."""
+    from nshmc_tpu_torch.algos.base import randn
+
+    g = torch.Generator().manual_seed(SEED + 10)
+    if name == "resample_original":
+        return [(randn(x.shape, g, x), randn(x.shape, g, x)) for _ in range(steps)]
+    algo = make_baseline(name, op, **changes)
+    return [algo.draw(g, x) for _ in range(steps)]
+
+
+def tiny_latent(torch, np, dev):
+    """configs/tiny_latent_test.yaml's LDM with seeded random weights on
+    `dev` (the same weights on any device)."""
+    import yaml
+    from nshmc_tpu_torch.cli_latent import latent_configs
+    from nshmc_tpu_torch.models.ldm import LatentDiffusion
+
+    with open(LATENT_TINY_CFG) as f:
+        cfg = yaml.safe_load(f)
+    ucfg, acfg = latent_configs(cfg)
+    m = cfg["model"]
+    ldm = LatentDiffusion.create(ucfg, acfg, m["linear_start"], m["linear_end"], m["timesteps"],
+                                 device="cpu")
+    ldm.unet.load_state_dict(random_state_dict(torch, ldm.unet, SEED + 6))
+    ldm.first_stage.load_state_dict(random_state_dict(torch, ldm.first_stage, SEED + 7))
+    return ldm.to(dev), cfg
+
+
+def phase_baselines_small(torch, np):
+    """(a) The ten baselines on the tiny configs in f32, the card (kernels)
+    against the CPU (plain versions), each on the same draws made on the
+    CPU: the eight pixel ones through the tiny U-Net (sigma_0 0.1, 3 steps,
+    92% random inpainting), ReSample and the original sampler through the
+    tiny LDM (6 and 20 steps: its hard consistency and both stages run)."""
+    import yaml
+    from nshmc_tpu_torch.models import unet
+    from nshmc_tpu_torch.operators import build_operator
+    from nshmc_tpu_torch.schedules import DDIMSequence, DiffusionSchedule
+
+    with open(os.path.join(ROOT, "configs", "tiny_test.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    mcfg = unet.UNetConfig.from_model_yaml(**cfg["model"])
+    model = unet.UNetModel(mcfg)
+    model.load_state_dict(random_state_dict(torch, model, SEED + 1))
+    d = mcfg.image_size
+    x_orig = torch.from_numpy(2 * synthetic_image(np, d, SEED) - 1)[None]
+    x_t = torch.randn((1, d, d, 3), generator=torch.Generator().manual_seed(SEED + 9))
+    z_t = torch.randn((1, 8, 8, 3), generator=torch.Generator().manual_seed(SEED + 9))
+    cases = [(n, 3, {}) for n in PIXEL_BASELINES] + [
+        ("resample", 6, dict(inner_steps=TINY_RESAMPLE_INNER)),
+        ("resample_original", 20, dict(ddim_steps=20))]
+    errs = {}
+    for name, steps, changes in cases:
+        latent = name.startswith("resample")
+        outs, seen = {}, {}
+        for dev in ("cpu", "cuda"):  # the draws are made on the CPU, with its operator
+            op = build_operator("inpaint_random", 3, d, np.random.default_rng(SEED), device=dev)
+            x = (z_t if latent else x_t).to(dev)
+            if dev == "cpu":
+                draws = baseline_draws(torch, name, op, x, steps,
+                                       **({} if name == "resample_original" else changes))
+            if latent:
+                ldm, lcfg = tiny_latent(torch, np, dev)
+                sched, seq = ldm.schedule, DDIMSequence.create(lcfg["model"]["timesteps"], 5)
+                fn = ldm.model_fn(stop_gradient=name == "resample_original")
+                kw = dict(decode=lambda z, ldm=ldm: ldm.decode_first_stage(z, True),
+                          encode=ldm.encode_first_stage)
+            else:
+                sched, seq, fn, kw = (DiffusionSchedule.create(device=dev),
+                                      DDIMSequence.create(1000, 3), model.to(dev), {})
+            with branch_counts() as br:
+                out = run_baseline(torch, name, fn, sched, seq, op, op.H_img(x_orig.to(dev)), x,
+                                   draws=[tuple(t.to(dev) for t in s_) for s_ in draws],
+                                   **kw, **changes)
+            outs[dev], seen[dev] = out.detach().cpu(), dict(br)
+        ref = outs["cpu"]
+        errs[name] = float((outs["cuda"] - ref).abs().max() / ref.abs().max())
+        check(bool(torch.isfinite(ref).all()) and errs[name] <= BASELINE_TOL
+              and seen["cpu"] == seen["cuda"],
+              f"phase 10(a) {name}: card vs CPU {errs[name]:.2e} (bar {BASELINE_TOL}), "
+              f"branches {seen}")
+        if name == "resample":
+            check(seen["cuda"]["hard_consistency"] == 1, f"(a) ReSample branches {seen}")
+        if name == "resample_original":
+            check(seen["cuda"]["pixel"] == seen["cuda"]["latent"] == 1,
+                  f"(a) original ReSample branches {seen}")
+    print(f"phase 10(a) the ten baselines on the tiny configs, f32, card vs CPU on the same "
+          f"draws: max|card - cpu| / max|cpu| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})} "
+          f"(bar {BASELINE_TOL}); ReSample's hard consistency and both stages of the original "
+          f"sampler ran on both")
+    return errs
+
+
+def baseline_run(torch, gn, counters, card, label, fn, k1, k2c, nets):
+    """fn() with every kernel count set to 0 just before and read just
+    after: K1 (`k1`, its bf16 or f32 kernel), K2a and K2b launched, K2c
+    launched exactly when `k2c`, no other kernel and no plain version. Each
+    of `nets` (Counted) counts its forwards and backwards. Prints one line
+    and returns its record."""
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
+        f.launches = 0
+    for n in nets.values():
+        n.forwards = n.backwards = 0
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain, branch_counts() as branches:
+        out = fn()
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    launches = {k: f.launches for k, f in counters.items()}
+    k2c_n = launches["gn_backward"] + launches["gn_backward_twopass"]
+    finite = bool(torch.isfinite(out).all())
+    check(not any(plain.values()), f"{label}: plain versions ran on the card: {plain}")
+    check(finite, f"{label}: the output is not finite")
+    check(launches[k1] > 0 and launches["gn_stats"] > 0 and launches["gn_apply"] > 0
+          and (k2c_n > 0) == k2c,
+          f"{label}: K1 ({k1}), K2a, K2b must launch and K2c {'must' if k2c else 'must not'}: "
+          f"{launches}")
+    allowed = {k1, "gn_stats", "gn_apply", *(BWD_KERNELS.values() if k2c else ())}
+    for k, v in launches.items():
+        check(k in allowed or v == 0, f"{label}: kernel {k} launched {v} times")
+    rec = dict(s=dt, peak_memory_gb=peak_gb, allocated_before_gb=base_gb,
+               launches={k: v for k, v in launches.items() if v},
+               **{f"{k}_{w}": getattr(n, w) for k, n in nets.items()
+                  for w in ("forwards", "backwards")},
+               branches={k: v for k, v in branches.items() if v}, finite=finite, card=card)
+    print(f"phase 10(b) {label}: {dt:.3f} s, "
+          + ", ".join(f"{k} forwards {n.forwards} backwards {n.backwards}"
+                      for k, n in nets.items())
+          + f", peak memory {peak_gb:.2f} GB ({base_gb:.2f} allocated before); launches "
+          f"{rec['launches']}; plain versions 0; output finite; branches "
+          f"{rec['branches'] or 'the plain ladder'}; {card}")
+    rec["launches"] = launches
+    return rec
+
+
+def phase_baselines(torch, np, gn, counters, card, flagship):
+    """(b) The ten baselines at full width, batch 1: the eight pixel ones
+    on the flagship model (configs/ffhq.yaml, bf16, the main path's random
+    weights, 92% random inpainting, sigma_0 0.1, 3 steps), ReSample on the
+    latent flagship (configs/ffhq_latent.yaml, f32, 11 steps 990 ... 90:
+    the 300-step hard consistency at t = 180) and the original sampler (20
+    DDIM steps: a pixel stage at index 10, a latent one at index 5), the
+    latent runs under torch's default TF32 settings as the CLI runs. y0's
+    noise and x_T from the host generator, the step draws from the device
+    generator, as the CLIs draw them. Returns {label: record}."""
+    from nshmc_tpu_torch.cli import host_randn, image_generators
+    from nshmc_tpu_torch.schedules import DDIMSequence
+
+    dev = torch.device("cuda")
+    f = flagship
+    recs = {}
+    host, gen = image_generators(SEED + 20, dev)
+    y0 = f.op.H_img(f.x_orig)
+    y0 = y0 + f.sigma_0 * host_randn(y0.shape, host, dev)
+    x_t = host_randn((1, f.d, f.d, f.c), host, dev)
+    for name in PIXEL_BASELINES:
+        net = Counted(f.model)
+        recs[name] = baseline_run(
+            torch, gn, counters, card, name,
+            lambda: run_baseline(torch, name, net, f.sched, f.seq, f.op, y0, x_t, gen),
+            "attention", name in K2C_ALGOS, {"unet": net})
+    with swapped((torch.backends.cudnn, "allow_tf32", True)):
+        p = latent_problem(torch, np, LATENT_CFG, torch.float32, dev)
+        z_t = host_randn((1, *p.z_shape), p.host, dev)
+        for name in ("resample", "resample_original"):
+            net = Counted(p.ldm.model_fn(stop_gradient=name == "resample_original"))
+            dec = Counted(p.ldm.decode_first_stage)
+            seq = DDIMSequence.create(p.ldm.schedule.num_timesteps, 10)
+            kw = {} if name == "resample" else dict(ddim_steps=20)
+            recs[name] = baseline_run(
+                torch, gn, counters, card, name,
+                lambda: run_baseline(torch, name, net, p.ldm.schedule, seq, p.op, p.y0[:1], z_t,
+                                     p.gen, decode=dec, encode=p.ldm.encode_first_stage, **kw),
+                "attention_f32", True, {"unet": net, "decoder": dec})
+        want = {"resample": {"hard_consistency": 1}, "resample_original": {"pixel": 1, "latent": 1}}
+        for name, w in want.items():
+            check(recs[name]["branches"] == w, f"{name}: branches {recs[name]['branches']}, "
+                                               f"expected {w}")
+    del p
+    return recs
+
+
+def gn_stats_times(torch, gn, x, eps, where):
+    """K2a's launch at x (B, R, C): device ms from CUDA graphs beside its
+    plain version's and `torch.var_mean`'s (per channel, no group
+    combine), and the bound."""
+    b, r, cc = x.shape
+    n = b * r * cc
+    ms = time_ms_graph(lambda: gn.group_stats(x, gn.NUM_GROUPS, eps))
+    plain = time_ms_graph(lambda: gn.group_stats_plain(x, gn.NUM_GROUPS, eps))
+    lib = time_ms_graph(lambda: torch.var_mean(x, dim=1, correction=0))
+    bms, by = bound_ms(n * x.element_size() + b * 4 * cc * 4, 3 * n, "float32")
+    dname = str(x.dtype).split(".")[1]
+    print(f"K2a {tuple(x.shape)} {dname} ({where}): kernel {ms:.4f} ms (CUDA graphs), plain "
+          f"{plain:.4f}, var_mean {lib:.4f}, bound {bms:.4f} ({by}), {100 * bms / ms:.0f}% of "
+          f"bound")
+    return dict(shape=list(x.shape), dtype=dname, eps=eps, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def phase_baselines_kernels(torch, attn, gn, kc):
+    """(c) The new shapes of (b), kernel against plain: K1 f32 at the latent
+    U-Net's batch-1 shapes (timed beside SDPA and the bound), and K2a, K2b
+    and K2c at every batch-1 f32 site of the latent U-Net and the VQ
+    decoder (K2c: each design that can take the call and the wrapper, which
+    cuts C > 1024 into channel chunks), at phase 3's bars; K2c's picked
+    design timed at the latent U-Net's sites of C = 224 k (k = 1-4) beside
+    the F.group_norm + F.silu backward and the bound, K2a and K2b timed
+    there too. Returns {kernel: [records]}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 41)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {"attention_f32": [], "gn_stats": [], "gn_apply": [], "gn_backward": [],
+           "gn_backward_twopass": []}
+    for shape in kc.BATCH1_ATTN_SHAPES:
+        out["attention_f32"].append(attention_case(torch, attn, kc, shape, torch.float32, g, dev))
+    dt, n_sites = torch.float32, 0
+    for part, (eps, sites) in kc.BATCH1_GN_SITES.items():
+        for shape in sites:
+            x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+            st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+            check(st["ok"], f"(c) K2a {part} {shape} eps {eps:g}: {kc.stats_summary(st)}")
+            for form in kc.AFFINE_FORMS:
+                ok, err = apply_check(torch, gn, x, form, g)
+                check(ok, f"(c) K2b {part} {shape} {form}: apply max {err:.2e}")
+                inputs = kc.gn_inputs(shape, dt, form, g, dev, eps)
+                for design in (*gn.bwd_designs(*shape, dt.itemsize, sms), None):
+                    res = kc.gn_backward_check(*inputs, design=design)
+                    check(res["ok"], f"(c) K2c {design or 'wrapper'} {part} {shape} {form}: "
+                                     f"{res}")
+            n_sites += 1
+            if part == "latent_unet" and shape[2] in BATCH1_TIMED_C:
+                where, n = "latent U-Net site, batch 1", {"sites": sites[shape]}
+                out["gn_stats"].append({**gn_stats_times(torch, gn, x, eps, where), **n})
+                out["gn_apply"].append({**gn_apply_times(torch, gn, x, eps, where), **n})
+                design = gn.bwd_design(*shape, dt.itemsize, sms)
+                rec = gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev, where)
+                out[BWD_KERNELS[design]].append({**rec, **n})
+    print(f"phase 10(c) K1 f32 at {len(kc.BATCH1_ATTN_SHAPES)} batch-1 shapes, K2a, K2b and K2c "
+          f"(each design that takes the call and the wrapper, both affine forms) at {n_sites} "
+          f"batch-1 f32 sites agree with their plain versions at phase 3's bars")
+    return out
+
+
+def phase_baseline_cli(np, cfg, algo, size):
+    """(d) The port's CLI, --algo `algo` on `cfg` on one synthetic image:
+    {idx}.png, metrics.jsonl and the summary line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        from PIL import Image
+
+        Image.fromarray((synthetic_image(np, size, SEED + 5) * 255).astype(np.uint8)).save(
+            os.path.join(data, "face.png"))
+        cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config", cfg, "--device", "cuda",
+               "--algo", algo, "--deg", "inpaint_random", "--data_path", data,
+               "-i", os.path.join(tmp, "out")]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
+              f"CLI --algo {algo} failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n"
+              f"{r.stderr[-3000:]}")
+        summary = json.loads(lines[-1])["summary"]
+        check(math.isfinite(summary.get("psnr", float("nan"))), f"CLI summary {summary}")
+        for name in ("0.png", "orig_0.png", "y0_0.png", "metrics.jsonl"):
+            check(os.path.exists(os.path.join(tmp, "out", name)),
+                  f"CLI --algo {algo} did not write {name}")
+        print(f"phase 10(d) CLI --algo {algo} ({os.path.basename(cfg)}, cuda) in "
+              f"{time.time() - t0:.1f} s: {lines[-1]}")
+
+
 def main():
     args = sys.argv[1:]
     trace_dir = None
@@ -2181,6 +2563,24 @@ def main():
     print(f"phase 9 (the rest of the noise-space samplers and solvers) took "
           f"{time.time() - t0:.1f} s")
 
+    # ---- 10. the iterative baselines ------------------------------------------------------------
+    import types
+
+    t0 = time.time()
+    baseline_errs = phase_baselines_small(torch, np)
+    model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
+    model.load_state_dict(weights)
+    model = model.to(dev).eval()
+    flagship = types.SimpleNamespace(
+        model=model, sched=sched, seq=seq, x_orig=x_orig, sigma_0=sigma_0, d=d, c=c,
+        op=build_operator("inpaint_random", c, d, np.random.default_rng(SEED), device=dev))
+    baselines = phase_baselines(torch, np, gn, counters, card, flagship)
+    del model, flagship
+    baseline_kernels = phase_baselines_kernels(torch, attn, gn, kc)
+    phase_baseline_cli(np, os.path.join(ROOT, "configs", "ffhq.yaml"), "dps", d)
+    phase_baseline_cli(np, LATENT_CFG, "resample", d)
+    print(f"phase 10 (the iterative baselines) took {time.time() - t0:.1f} s")
+
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
         if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
@@ -2203,7 +2603,8 @@ def main():
     # each HMC run's launch counts by kernel, each kernel counted where it launches
     paths = {"flagship bf16": launches, "latent bf16": latent_bf16["launches"],
              "latent f32": latent_f32["launches"],
-             **{f"phase 9 {k}": r_["launches"] for k, r_ in p9.records.items()}}
+             **{f"phase 9 {k}": r_["launches"] for k, r_ in p9.records.items()},
+             **{f"phase 10 {k}": r_["launches"] for k, r_ in baselines.items()}}
 
     kernels = []
     for name, (route, src, replaces) in sources.items():
@@ -2225,6 +2626,8 @@ def main():
                         "latent_shapes": [x for x in latent_kernels.get(key, [])
                                           if kdt in (None, x["dtype"])],
                         **({"flagship_shapes": attn_f32} if name == "attention_f32" else {}),
+                        **({"batch1_shapes": baseline_kernels[name]}
+                           if name in baseline_kernels else {}),
                         **({"flagship_shapes": [stats_record(v) for v in stats_records
                                                 if v["path"] == "flagship"]}
                            if name == "gn_stats" else {}),
@@ -2251,7 +2654,10 @@ def main():
         "kernel_wizard": kernel_wizard,
         "noise_space_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
                               for k, r_ in p9.records.items()},
-        "batch16_gradient_noise": p9.batch_noise}))
+        "batch16_gradient_noise": p9.batch_noise,
+        "baseline_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
+                           for k, r_ in baselines.items()},
+        "baselines_card_vs_cpu": baseline_errs}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
-"""Experiment entry point: the noise-space samplers and solvers of
-nshmc_tpu/cli.py in the pixel space (`--algo hmc`, `hmc_cond`, `dmplug_adam`,
-`dmplug_lbfgs`) and, through cli_latent.py, in the latent space
-(`--algo hmc_latent`).
+"""Experiment entry point: every algorithm of nshmc_tpu/cli.py. In the
+pixel space the noise-space samplers and solvers (`--algo hmc`, `hmc_cond`,
+`dmplug_adam`, `dmplug_lbfgs`) and the iterative baselines (`ddnm`, `ddrm`,
+`dps`, `pigdm`, `dmps`, `reddiff`, `diffpir`, `daps`; `--noise` picks DPS's
+step); through cli_latent.py, in the latent space, `--algo hmc_latent`,
+`resample` and `resample_original`.
 
 Parses the JAX CLI's flags, loads the YAML config, builds the ADM U-Net
 prior and the degradation, synthesizes y0 = H(x) + sigma_0 * noise (sigma_0
 doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does), runs the
-chains as one batch (or in waves, `--chain_chunk`), and writes
+chains as one batch (or in waves, `--chain_chunk`) or the baseline from one
+x_T, and writes
 {idx}.png, orig_{idx}.png, y0_{idx}.png, std_dev_map_{idx}.png,
 metrics.jsonl and a final {"summary": ...} line; with `--save_epochs` the
 per-accept hmc_{e}.png and hmc_trail_{idx}.json, with `--diagnostics`
@@ -20,6 +23,7 @@ Run:  python -m nshmc_tpu_torch.cli --algo hmc --deg inpaint_random \
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import time
@@ -33,8 +37,9 @@ def get_parser():
     p = argparse.ArgumentParser(description="nshmc_tpu_torch sampling CLI")
     p.add_argument("--config", default="configs/ffhq.yaml")
     p.add_argument("--algo", default="hmc",
-                   help="hmc | hmc_cond | hmc_latent | dmplug_adam | dmplug_lbfgs (the "
-                        "ported samplers and solvers; the iterative baselines raise)")
+                   help="hmc | hmc_cond | hmc_latent | dmplug_adam | dmplug_lbfgs | ddnm | "
+                        "ddrm | dps | pigdm | dmps | reddiff | diffpir | daps | resample | "
+                        "resample_original")
     p.add_argument("--deg", default="inpaint_random",
                    help="degradation: srN (N x N block averaging) | sr_bicubicN | "
                         "inpaint_random | inpaint_box | deblur_gauss | deblur_aniso | "
@@ -63,6 +68,9 @@ def get_parser():
     p.add_argument("--lbfgs_inner", type=int, default=20,
                    help="DMPlug L-BFGS inner iterations per outer step")
     p.add_argument("--seed", type=int, default=1234)
+    p.add_argument("--noise", default="ddpm", choices=["ddpm", "ddim"],
+                   help="the pixel baselines' step noise: ddpm (eta-DDPM) or ddim (none); "
+                        "DPS reads it")
     p.add_argument("-i", "--image_folder", default="out")
     p.add_argument("--subset_start", type=int, default=0)
     p.add_argument("--subset_end", type=int, default=1)
@@ -109,20 +117,15 @@ def get_parser():
 
 
 LATENT_ALGOS = ("hmc_latent", "resample", "resample_original")
-PIXEL_ALGOS = ("hmc", "hmc_cond", "dmplug_adam", "dmplug_lbfgs")
-BASELINE_ALGOS = ("ddnm", "ddrm", "dps", "pigdm", "dmps", "reddiff", "diffpir", "daps",
-                  "resample", "resample_original")
+PIXEL_BASELINES = ("ddnm", "ddrm", "dps", "pigdm", "dmps", "reddiff", "diffpir", "daps")
+PIXEL_ALGOS = ("hmc", "hmc_cond", "dmplug_adam", "dmplug_lbfgs") + PIXEL_BASELINES
 
 
 def _check_ported(opt):
-    if opt.algo in BASELINE_ALGOS:
-        raise NotImplementedError(
-            f"--algo {opt.algo} is not ported to nshmc_tpu_torch yet: the iterative baseline "
-            "algorithms are ROADMAP.md, Queue 1 item 4")
     if opt.algo not in PIXEL_ALGOS + LATENT_ALGOS:
         raise NotImplementedError(
-            f"--algo {opt.algo} is not an algorithm of nshmc_tpu_torch; the ported ones are "
-            f"{', '.join(PIXEL_ALGOS + LATENT_ALGOS[:1])} (ROADMAP.md, Queue 1)")
+            f"--algo {opt.algo} is not an algorithm of nshmc_tpu_torch; they are "
+            f"{', '.join(PIXEL_ALGOS + LATENT_ALGOS)} (ROADMAP.md, Queue 1)")
     if opt.mesh > 1:
         raise NotImplementedError(
             "--mesh is not ported to nshmc_tpu_torch yet: sharding chains over devices is "
@@ -251,6 +254,8 @@ def run_pixel(opt):
         return _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
                                       device, stats)
     run = {"hmc": _pixel_hmc, "hmc_cond": _pixel_hmc_cond}.get(opt.algo, _pixel_dmplug)
+    if opt.algo in PIXEL_BASELINES:
+        run = functools.partial(_pixel_baseline, model=model, sched=sched, seq=seq)
     for idx, path in enumerate(files):
         host, gen = image_generators(opt.seed + idx, device)
         x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
@@ -338,6 +343,21 @@ def _pixel_hmc_cond(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
     out = run_conditioned_hmc(make_pixel_loss_fn(decode, operator, y0[0]), ccfg, states, gen,
                               chain_chunk=opt.chain_chunk)
     return out.samples
+
+
+def _pixel_baseline(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen, *, model, sched,
+                    seq):
+    """An iterative baseline from x_T (nshmc_tpu/cli.py:463-477): each step's
+    draws from the image's device generator. Returns the final x0."""
+    from .algos import build_algo, run_daps
+    from .sampling.loop import iterative_sampling
+
+    sigma_0 = hmc_cfg.sigma_0
+    if opt.algo == "daps":
+        return run_daps(model, sched, seq, build_algo("daps", operator, sigma_0, opt.deg), x_t,
+                        y0, gen)
+    algo = build_algo(opt.algo, operator, sigma_0, opt.deg, noise=opt.noise)
+    return iterative_sampling(model, sched, seq, algo, x_t, y0, gen)
 
 
 def _pixel_dmplug(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):

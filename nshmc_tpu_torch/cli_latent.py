@@ -1,13 +1,17 @@
-"""Latent-space experiment entry point, `--algo hmc_latent` (port of
-nshmc_tpu/cli_latent.py; `python -m nshmc_tpu_torch.cli` dispatches here).
+"""Latent-space experiment entry point, `--algo hmc_latent`, `resample` and
+`resample_original` (port of nshmc_tpu/cli_latent.py; `python -m
+nshmc_tpu_torch.cli` dispatches here).
 
 Builds the LDM (latent U-Net + VQ-f4 first stage, f32, random weights from
-seed 0 unless the config's checkpoint exists), samples z_T at the latent
-shape, runs latent noise-space HMC with the chains as one batch (or in waves,
-`--chain_chunk`; snapshots and resume under `--checkpoint-dir`), decodes
-the kept z0 latents (or, where no chain kept one, the final chain states
-through the DDIM ladder) with the VQ decoder, and writes the pixel CLI's
-artifacts, metrics.jsonl and {"summary": ...} line.
+seed 0 unless the config's checkpoint exists) and samples z_T at the latent
+shape. `hmc_latent` runs latent noise-space HMC with the chains as one batch
+(or in waves, `--chain_chunk`; snapshots and resume under
+`--checkpoint-dir`) and decodes the kept z0 latents (or, where no chain kept
+one, the final chain states through the DDIM ladder); `resample` runs
+ReSample over the DDIM ladder with the eps-net differentiated, and
+`resample_original` the original sampler (max(--timesteps, 10) DDIM steps,
+eps-net stop-grad), each from one z_T, its final latent decoded. Each writes
+the pixel CLI's artifacts, metrics.jsonl and {"summary": ...} line.
 
 Run:  python -m nshmc_tpu_torch.cli --algo hmc_latent --config configs/ffhq_latent.yaml
 """
@@ -105,6 +109,13 @@ def run_latent(opt):
     for idx, path in enumerate(files):
         host, gen = image_generators(opt.seed + idx, device)
         x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
+        if opt.algo != "hmc_latent":
+            t0 = time.time()
+            z = host_randn((1, *z_shape), host, device)
+            samples = _latent_resample(opt, ldm, seq, operator, sigma_0, y0, z, gen)
+            record(opt, idx, path, im.inverse_data_transform(samples).cpu(), x01,
+                   time.time() - t0, stats)
+            continue
 
         def report(states, rnd):
             # the Hamiltonian's parts and the acceptance ratio of chain 0
@@ -142,3 +153,26 @@ def run_latent(opt):
     summary = stats.summary()
     print(json.dumps({"summary": summary}))
     return summary
+
+
+def _latent_resample(opt, ldm, seq, operator, sigma_0, y0, z, gen):
+    """--algo resample / resample_original from z_T (nshmc_tpu/cli_latent.py:
+    281-309); the step draws from the device generator. Returns the decoded
+    final latent."""
+    if opt.algo == "resample":
+        from .algos.resample import ReSample
+        from .sampling.loop import iterative_sampling
+
+        algo = ReSample(operator=operator, sigma_0=sigma_0, decode_fn=ldm.decode_first_stage)
+        z_out = iterative_sampling(ldm.model_fn(stop_gradient=False), ldm.schedule, seq, algo,
+                                   z, y0, gen)
+    else:
+        from .sampling.resample_original import (ResampleOriginalConfig,
+                                                 resample_original_sample)
+
+        z_out = resample_original_sample(
+            ldm.model_fn(stop_gradient=True), ldm.schedule, ldm.decode_first_stage,
+            ldm.encode_first_stage, operator, y0, z,
+            ResampleOriginalConfig(ddim_steps=max(opt.timesteps, 10)), gen)
+    with torch.no_grad():
+        return ldm.decode_first_stage(z_out)

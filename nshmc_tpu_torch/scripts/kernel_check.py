@@ -23,8 +23,10 @@ checks, on seeded random inputs:
     its eps), in bf16 and f32, and the variance clip at eps 1e-6;
   - K2c at the latent path's GN+SiLU shapes (LATENT_GN_SITES: the VQ
     decoder's at eps 1e-6, the latent U-Net's, with 7 to 56 channels a
-    group): each design that can take the call, and the wrapper, which cuts
-    the f32 calls wider than 1024 channels into chunks of whole groups.
+    group), and in f32 at the same sites at batch 1 (BATCH1_GN_SITES, the
+    ReSamples' gradients): each design that can take the call, and the
+    wrapper, which cuts the f32 calls wider than 1024 channels into chunks
+    of whole groups; K1 in f32 at the latent U-Net's batch-1 shapes.
 Each case prints one line; the run exits 1 if any case disagrees. No time
 is measured: this is the build-and-check step before a kernel is timed.
 `chip_smoke.py` phase 3 uses the same checks at the main path's shapes.
@@ -108,6 +110,12 @@ LATENT_UNET_GN_SITES = {(8, 4096, 224): 8, (8, 4096, 448): 2, (8, 4096, 672): 1,
                         (8, 64, 672): 1, (8, 64, 896): 10, (8, 64, 1568): 1, (8, 64, 1792): 2}
 LATENT_GN_SITES = {"vq_decoder": (1e-6, VQ_DECODER_GN_SITES),
                    "latent_unet": (1e-5, LATENT_UNET_GN_SITES)}
+# the same sites at batch 1, where ReSample differentiates the latent U-Net
+# and both ReSamples' inner solves the VQ decoder, in f32 (7 to 56 channels
+# a group); and K1 at the latent U-Net's batch-1 shapes
+BATCH1_GN_SITES = {part: (eps, {(1, r, c): n for (_, r, c), n in sites.items()})
+                   for part, (eps, sites) in LATENT_GN_SITES.items()}
+BATCH1_ATTN_SHAPES = [(1, t, h, ch) for (_, t, h, ch) in LATENT_ATTN_SHAPES]
 # the GroupNorm32 sites (an attention block's norm, no SiLU: K2a alone), (B,
 # rows, C) -> sites a forward: the flagship U-Net's at ds16 and ds32, the
 # latent U-Net's at ds 2, 4, 8 (eps 1e-5), the VQ decoder's mid-block
@@ -388,21 +396,27 @@ def main() -> int:
               f"{'ok' if res['ok'] else 'FAILS'}")
         bad += [] if res["ok"] else [("K2a clip", dt)]
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for part, (eps, sites) in LATENT_GN_SITES.items():
-        for shape in sites:
-            for dt in (torch.bfloat16, torch.float32):
-                designs = gn.bwd_designs(*shape, dt.itemsize, sms)
-                for form in AFFINE_FORMS:
-                    inputs = gn_inputs(shape, dt, form, gen, dev, eps)
-                    for design in (*designs, None):
-                        res = gn_backward_check(*inputs, design=design)
-                        name = design or f"wrapper ({wrapper_route(shape, dt, sms)})"
-                        print(f"K2c {part} {name} {shape} {dt} {form} "
-                              f"eps {eps:g}: max|dx| diff {res['dx_err']:.3e}, affine rel "
-                              f"{res['affine_rel_err']:.2e}, two calls "
-                              f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
-                              f"{'ok' if res['ok'] else 'DISAGREES'}")
-                        bad += [] if res["ok"] else [("K2c", part, design, shape, dt, form)]
+    for shape in BATCH1_ATTN_SHAPES:
+        res = attention_check(*qkv_inputs(shape, torch.float32, gen, dev))
+        print(f"K1 {shape} torch.float32: {attention_summary(res)}")
+        bad += [] if res["ok"] else [("K1", shape, torch.float32)]
+    cases = [(part, eps, shape, dt) for part, (eps, sites) in LATENT_GN_SITES.items()
+             for shape in sites for dt in (torch.bfloat16, torch.float32)]
+    cases += [(f"{part} batch 1", eps, shape, torch.float32)
+              for part, (eps, sites) in BATCH1_GN_SITES.items() for shape in sites]
+    for part, eps, shape, dt in cases:
+        designs = gn.bwd_designs(*shape, dt.itemsize, sms)
+        for form in AFFINE_FORMS:
+            inputs = gn_inputs(shape, dt, form, gen, dev, eps)
+            for design in (*designs, None):
+                res = gn_backward_check(*inputs, design=design)
+                name = design or f"wrapper ({wrapper_route(shape, dt, sms)})"
+                print(f"K2c {part} {name} {shape} {dt} {form} "
+                      f"eps {eps:g}: max|dx| diff {res['dx_err']:.3e}, affine rel "
+                      f"{res['affine_rel_err']:.2e}, two calls "
+                      f"{'bit-identical' if res['same_bits'] else 'DIFFER'}: "
+                      f"{'ok' if res['ok'] else 'DISAGREES'}")
+                bad += [] if res["ok"] else [("K2c", part, design, shape, dt, form)]
     print(card(dev))
     print(f"{'all cases agree' if not bad else f'{len(bad)} cases disagree: {bad}'}")
     return 1 if bad else 0

@@ -1,1 +1,2 @@
-"""nshmc_tpu_torch.solvers: DMPlug (solvers/dmplug.py)."""
+"""nshmc_tpu_torch.solvers: DMPlug (solvers/dmplug.py), schedule-free AdamW
+(solvers/sf_adamw.py) and optax's Adam and AdamW written out (solvers/adamw.py)."""

@@ -23,6 +23,7 @@ from typing import Callable, Optional
 import torch
 
 from ..hmc.engine import value_and_grad
+from .adamw import adamw_step
 
 LossAndDecode = Callable[[torch.Tensor], tuple]
 # loss_and_decode(x) -> (scalar loss, decoded image batch); differentiable in x
@@ -32,7 +33,6 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b)
 
 
-ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8  # optax.adam's defaults
 LBFGS_MEMORY = 10  # optax.lbfgs's default memory_size
 
 
@@ -59,16 +59,10 @@ def dmplug_adam(loss_and_decode: LossAndDecode, x0: torch.Tensor,
     mu, nu = torch.zeros_like(x), torch.zeros_like(x)
     numel = x.numel()
     ring = torch.zeros((cfg.buffer_size, numel), dtype=torch.float32, device=x.device)
-    b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=x.device)
-    b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=x.device)
     best_var, wait, decoded = math.inf, 0, None
     for step in range(cfg.max_steps):
         loss, decoded, g = value_and_grad(loss_and_decode, x)
-        mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
-        nu = (1 - ADAM_B2) * g**2 + ADAM_B2 * nu
-        mu_hat = mu / (1 - b1 ** (step + 1))  # the bias corrections in float32, as optax
-        nu_hat = nu / (1 - b2 ** (step + 1))
-        x = x + (-cfg.lr) * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        x, mu, nu = adamw_step(x, g, mu, nu, step, cfg.lr)
         if progress is not None:
             progress(step + 1, float(loss))
 

@@ -48,10 +48,15 @@ def test_cli_hmc_runs_and_writes_artifacts(tmp_path, capsys):
     assert json.loads(last) == {"summary": summary}
 
 
-@pytest.mark.parametrize("flag", [["--algo", "ddnm"], ["--mesh", "2"], ["--algo", "dps"],
-                                  ["--algo", "daps"], ["--algo", "diffpir"],
-                                  ["--algo", "reddiff"], ["--algo", "resample"]])
+@pytest.mark.parametrize("flag", [["--algo", "ddnm", "--mesh", "2"], ["--mesh", "2"],
+                                  ["--algo", "dps", "--mesh", "2"], ["--algo", "daps_x"],
+                                  ["--algo", "diffpir", "--mesh", "4"],
+                                  ["--algo", "reddiff", "--mesh", "2"],
+                                  ["--algo", "resample", "--mesh", "2"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
+    """--mesh > 1 (ROADMAP.md, Queue 1 item 6) with any algorithm, the
+    baselines included since they are ported, and a name that is no
+    algorithm, raise before any output."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", *flag])
     assert not (tmp_path / "o").exists()

@@ -1,7 +1,7 @@
 """nshmc_tpu_torch's latent CLI (`--algo hmc_latent`) end to end on the tiny
 latent config (CPU, f32), with a synthetic image in place of the absent
-dataset; its extract_kept_samples against the JAX package's; and the latent
-algorithms that are not ported yet."""
+dataset; its extract_kept_samples against the JAX package's; and --mesh,
+not ported yet, with the latent algorithms."""
 import json
 import os
 
@@ -64,9 +64,11 @@ def test_extract_kept_samples_matches_jax():
 
 @pytest.mark.parametrize("algo", ["resample", "resample_original"])
 def test_cli_unported_latent_algos_raise(tmp_path, algo):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 4"):
+    """Both ReSamples are ported (tests/test_torch_cli_baselines.py); what
+    stays unported with them, --mesh > 1, raises before any output."""
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu",
-                  "--algo", algo])
+                  "--algo", algo, "--mesh", "2"])
     assert not (tmp_path / "o").exists()
 
 

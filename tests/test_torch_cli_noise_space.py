@@ -136,12 +136,13 @@ def test_fullbudget_command_lines_parse():
 
 
 def test_parser_takes_every_jax_flag_but_noise():
-    """Every flag of nshmc_tpu/cli.py's parser but --noise (the baselines'),
-    with the JAX CLI's defaults, choices and types; --device is the port's."""
+    """Every flag of nshmc_tpu/cli.py's parser, --noise too since the
+    baselines are ported, with the JAX CLI's defaults, choices and types;
+    --device is the port's."""
     from nshmc_tpu.cli import get_parser as jax_parser
 
     jax, port = jax_parser(), cli.get_parser()
-    assert set(jax._option_string_actions) - set(port._option_string_actions) == {"--noise"}
+    assert set(jax._option_string_actions) - set(port._option_string_actions) == set()
     assert set(port._option_string_actions) - set(jax._option_string_actions) == {"--device"}
     jactions = {a.dest: a for a in jax._actions}
     for a in port._actions:

@@ -39,10 +39,12 @@ def _plan_cases():
 @pytest.mark.parametrize("shape,dtype", _plan_cases(),
                          ids=[f"{s}-{d}" for s, d in _plan_cases()])
 def test_plan_covers_every_element_once_within_the_card(shape, dtype):
-    b, r, c = shape
-    elem = DTYPES[dtype]
-    p = gn.bwd_plan(b, r, c, elem, SMS)
-    vec, cg = 16 // elem, c // gn.NUM_GROUPS
+    _assert_plan_covers(*shape, DTYPES[dtype])
+
+
+def _assert_plan_covers(b, r, c, elem, num_groups=gn.NUM_GROUPS):
+    p = gn.bwd_plan(b, r, c, elem, SMS, num_groups)
+    vec, cg = 16 // elem, c // num_groups
     # the unit's channels: a multiple of the group and of the 16-byte vector,
     # >= 64 bytes a row, a divisor of C
     assert p.ck % cg == 0 and p.ck % vec == 0 and c % p.ck == 0 and p.ck * elem >= 64
@@ -70,6 +72,31 @@ def test_plan_covers_every_element_once_within_the_card(shape, dtype):
     rows = sum(min(p.slab_rows, r - s * p.slab_rows) for s in range(p.slabs))
     assert rows == r and p.units * p.ck == b * c
     assert p.scratch_floats > 0 and p.counters == 2 * p.units + 2
+
+
+BATCH1_F32 = [s for _, sites in kc.BATCH1_GN_SITES.values() for s in sites]
+
+
+@pytest.mark.parametrize("shape", BATCH1_F32, ids=str)
+def test_batch1_f32_latent_sites_have_a_design_and_a_plan(shape):
+    """The ReSamples' K2c sites in f32 at batch 1: the latent U-Net's (C =
+    224 k, 7-56 channels a group) and the VQ decoder's. Each channel chunk
+    of whole groups the wrapper cuts a call into (C > 1024) has a design
+    that `bwd_design` picks among those that take it; the two-pass one's
+    finish kernel holds the batch's group sums, and the one launch's plan
+    covers every element once within the card."""
+    b, r, c = shape
+    n = gn.bwd_channel_chunks(c, gn.NUM_GROUPS, 4)
+    w, groups = c // n, gn.NUM_GROUPS // n
+    assert w * n == c and w % 8 == 0 and w % groups == 0 and w <= 1024
+    designs = gn.bwd_designs(b, r, w, 4, SMS, groups)
+    assert designs and gn.bwd_design(b, r, w, 4, SMS, groups) in designs
+    if "twopass" in designs:
+        assert 8 * b * (w // groups) <= gn._BWD_FINISH_SMEM
+    if "one_launch" in designs:
+        _assert_plan_covers(b, r, w, 4, groups)
+    if c == 224:  # 7 channels a group, the narrowest: units of 28 channels (4 groups)
+        assert gn.bwd_plan(b, r, c, 4, SMS).ck == 28
 
 
 def test_small_units_take_no_handoff_and_the_hot_shape_fills_the_card():

@@ -37,7 +37,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "operators/nonlinear_blur.py", "models/kernel_wizard.py",
                    # the noise-space samplers' and solvers' modules
                    "hmc/adaptation.py", "utils/diagnostics.py", "utils/checkpointing.py",
-                   "solvers/dmplug.py", "solvers/__init__.py"):
+                   "solvers/dmplug.py", "solvers/__init__.py",
+                   # the iterative baselines' modules
+                   "algos/__init__.py", "algos/base.py", "algos/spectral.py",
+                   "algos/guided.py", "algos/optim_based.py", "algos/resample.py",
+                   "sampling/loop.py", "sampling/resample_original.py",
+                   "solvers/sf_adamw.py", "solvers/adamw.py"):
         assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:

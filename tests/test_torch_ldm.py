@@ -89,8 +89,10 @@ def jax_vq(case="tiny", seed=0, model=jae.VQModel, **changes):
     kw = ae_kwargs(**AE_CASES[case], **changes)
     jcfg = jae.AutoencoderConfig(**kw)
     jm = model(jcfg)
-    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
-                     **({"key": jax.random.PRNGKey(1)} if model is jae.AutoencoderKL else {}))
+    # redraw() replaces every leaf, so only the shapes of the init are needed
+    params = jax.eval_shape(
+        lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+                        **({"key": jax.random.PRNGKey(1)} if model is jae.AutoencoderKL else {})))
     return jm, redraw(params, seed), AutoencoderConfig(**kw)
 
 
@@ -104,7 +106,8 @@ def jax_latent_unet(seed=0):
     jcfg = jax_latent_unet_config(**unet_kwargs())
     jm = JaxUNetModel(jcfg)
     d = jcfg.image_size
-    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, d, d, 3)), jnp.zeros((1,)))
+    params = jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.zeros((1, d, d, 3)),
+                            jnp.zeros((1,)))
     return jm, redraw(params, seed), latent_unet_config(**unet_kwargs())
 
 

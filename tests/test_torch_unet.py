@@ -35,7 +35,9 @@ def jax_tiny(scale_shift=True, updown=True, seed=0):
     kw = dict(TINY, use_scale_shift_norm=scale_shift, resblock_updown=updown)
     jcfg = dataclasses.replace(JaxUNetConfig.from_model_yaml(**kw), remat=False)
     jmodel = JaxUNetModel(jcfg)
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)), jnp.zeros((1,)))
+    # every leaf is redrawn below, so only the shapes of the init are needed
+    params = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), jnp.zeros((1, 16, 16, 3)),
+                            jnp.zeros((1,)))
     rng = np.random.default_rng(seed)
 
     def redraw(path, leaf):
