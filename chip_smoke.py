@@ -112,7 +112,25 @@ It builds the port's kernels from the sources in this checkout and then:
      latent U-Net's batch-1 shapes and K2a, K2b, K2c at its and the VQ
      decoder's batch-1 f32 sites against their plain versions, each timed
      at the U-Net's sites of C = 224 k; (d) the CLIs with --algo dps and
-     --algo resample.
+     --algo resample;
+ 11. the remaining models and utilities: (a) the tiny DDPM, the tiny U-Net
+     with a context (transformer_depth 2) and with class labels (forward
+     and input gradient) and LPIPS at batch 2, f32, card against CPU (bar
+     BASELINE_TOL); (b) the CelebA-HQ DDPM (DDPMConfig's defaults, random
+     weights) as the 3-step DDIM decoder's eps-net, 92% random inpainting at
+     256^2, 8 chains, one warm-up and DDPM_EVALS energy+grad evaluations in
+     bf16 and f32: K2a at every GN+SiLU and GroupNorm32 call, K2b and K2c
+     at every GN+SiLU call (forward hooks), K1 and the plain versions never;
+     evals/s, peak memory, useful TFLOP/s (utils/profiling.compiled_flops);
+     (c) configs/ffhq_latent.yaml's U-Net with context_dim 512 (a
+     SpatialTransformer at each attention site) and an (8, 1, 512) context,
+     forward and input gradient in f32 and bf16, the same holds; (d) the
+     flagship U-Net with 1000 classes, one bf16 energy+grad evaluation
+     whose launches are the main path's an evaluation (K1 12); (e)
+     LPIPS-VGG at (8, 256, 256, 3) timed, against the CPU at batch 2, and
+     the pixel CLI with local random LPIPS weights (its record holds
+     lpips); (f) K2a, K2b, K2c against their plain versions at every DDPM
+     site shape at eps 1e-6, both dtypes, K2c's picked design timed.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
@@ -2134,7 +2152,395 @@ def phase_baseline_cli(np, cfg, algo, size):
               f"{time.time() - t0:.1f} s: {lines[-1]}")
 
 
+# ---- 11. the remaining models and utilities ---------------------------------------------------
+# (a) the tiny DDPM of tests/test_torch_ddpm_simple.py; each model card against CPU within
+# phase 10(a)'s bar (BASELINE_TOL of max|cpu|), LPIPS too
+DDPM_TINY = dict(ch=32, out_ch=3, ch_mult=(1, 2), num_res_blocks=1, attn_resolutions=(8,),
+                 in_channels=3, resolution=16)
+DDPM_EVALS = 3         # (b) timed energy+grad evaluations, after one warm-up
+COND_CONTEXT_DIM = 512  # (c) one (8, 1, 512) token: a class-embedding conditioner's shape
+N_CLASSES = 1000        # (d) the class-conditional ADM's label count (class_cond: true)
+
+
+def lpips_weights(torch, seed):
+    """Seeded random weights in torchvision's VGG16 `features.*` layout (He
+    scaled) and lpips' `lin{i}.model.1` heads (non-negative, as trained
+    heads are)."""
+    from nshmc_tpu_torch.utils import lpips
+
+    g = torch.Generator().manual_seed(seed)
+    vgg_sd, in_ch = {}, 3
+    chans = [ch for ch, n in lpips._VGG_STAGES for _ in range(n)]
+    for idx, out_ch in zip(lpips.TV_CONV_IDX, chans):
+        vgg_sd[f"features.{idx}.weight"] = (torch.randn(out_ch, in_ch, 3, 3, generator=g)
+                                            * math.sqrt(2.0 / (9 * in_ch)))
+        vgg_sd[f"features.{idx}.bias"] = 0.05 * torch.randn(out_ch, generator=g)
+        in_ch = out_ch
+    lin_sd = {f"lin{i}.model.1.weight": torch.rand(1, ch, 1, 1, generator=g)
+              for i, (ch, _) in enumerate(lpips._VGG_STAGES)}
+    return vgg_sd, lin_sd
+
+
+def lpips_model(torch, seed):
+    from nshmc_tpu_torch.utils import lpips
+
+    m = lpips.LPIPS()
+    m.load_state_dict(lpips.port_lpips_weights(*lpips_weights(torch, seed)), strict=True)
+    return m.eval()
+
+
+def phase_models_small(torch, np):
+    """(a) Card (kernels) against CPU (plain versions), f32, on tiny
+    configs: the tiny DDPM, the tiny U-Net with context_dim 24 and
+    transformer_depth 2 (a 5-token context, so a site without it would
+    differ), and with 10 classes, each its output and the input gradient
+    of sum(eps^2); LPIPS at batch 2, 64^2. Returns {case: errors}."""
+    import yaml
+    from nshmc_tpu_torch.models import ddpm_simple, unet
+
+    with open(os.path.join(ROOT, "configs", "tiny_test.yaml")) as f:
+        base = unet.UNetConfig.from_model_yaml(**yaml.safe_load(f)["model"])
+    g = torch.Generator().manual_seed(SEED + 50)
+    x = torch.randn((2, 16, 16, 3), generator=g)
+    t = torch.tensor([100.0, 700.0])
+    cases = {"ddpm": (ddpm_simple.DDPMModel(ddpm_simple.DDPMConfig(**DDPM_TINY)), {}),
+             "conditional": (unet.UNetModel(dataclasses.replace(
+                 base, context_dim=24, transformer_depth=2)),
+                 {"context": torch.randn((2, 5, 24), generator=g)}),
+             "class_conditional": (unet.UNetModel(dataclasses.replace(base, num_classes=10)),
+                                   {"y": torch.tensor([3, 7])})}
+    errs = {}
+    for i, (name, (model, kw)) in enumerate(cases.items()):
+        model.load_state_dict(random_state_dict(torch, model, SEED + 51 + i))
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            m = model.to(dev)
+            xx = x.to(dev).requires_grad_(True)
+            out = m(xx, t.to(dev), **{k: v.to(dev) for k, v in kw.items()})
+            (gr,) = torch.autograd.grad((out[..., :3] ** 2).sum(), xx)
+            outs[dev] = (out.detach().cpu(), gr.cpu())
+        e = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(outs["cuda"], outs["cpu"])]
+        errs[name] = {"forward": e[0], "input_gradient": e[1]}
+        check(max(e) <= BASELINE_TOL and all(bool(torch.isfinite(v).all()) for v in outs["cpu"]),
+              f"phase 11(a) {name}: card vs CPU {e} (bar {BASELINE_TOL})")
+    lp = lpips_model(torch, SEED + 54)
+    a, b = (torch.rand((2, 64, 64, 3), generator=g) * 2 - 1 for _ in range(2))
+    vals = {dev: lp.to(dev)(a.to(dev), b.to(dev)).cpu() for dev in ("cpu", "cuda")}
+    errs["lpips"] = float((vals["cuda"] - vals["cpu"]).abs().max() / vals["cpu"].abs().max())
+    check(errs["lpips"] <= BASELINE_TOL, f"phase 11(a) LPIPS: card vs CPU {errs['lpips']:.2e}")
+    print(f"phase 11(a) tiny DDPM, conditional U-Net (context, depth 2), class-conditional U-Net "
+          f"(forward, input gradient) and LPIPS (batch 2, 64^2), f32, card vs CPU: "
+          f"max|card - cpu| / max|cpu| {json.dumps(errs)} (bar {BASELINE_TOL})")
+    return errs
+
+
+def counted_run(torch, kc, gn, counters, root, fn, n, label):
+    """fn() `n` times with every kernel count set to 0 just before and read
+    just after, the plain versions and the GN sites under `root` counted
+    (forward hooks): (record, launches, {GN+SiLU shape: calls}, {GroupNorm32
+    shape: calls}, {attention shape: calls}). Checks no plain version ran."""
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
+        f.launches = 0
+    torch.cuda.synchronize()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        gn_calls, attn_calls, norm_calls = kc.count_sites(root, lambda: [fn() for _ in range(n)])
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: f.launches for k, f in counters.items()}
+    launches["gn_backward_calls"] = gn.groupnorm_silu_backward.launches
+    check(not any(plain.values()), f"{label}: plain versions ran on the card: {plain}")
+    rec = dict(s=dt, runs=n, per_s=n / dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               allocated_before_gb=base_gb)
+    return rec, launches, gn_calls, norm_calls, attn_calls
+
+
+def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize):
+    """K2a at every GN+SiLU and GroupNorm32 call, K2b at every GN+SiLU call,
+    K2c at every GN+SiLU call (each differentiated once: no remat on these
+    paths; a call too wide for one kernel call, an f32 C > 1024, as its
+    channel chunks, each a call of its own) and launched; K1 never, nothing
+    else."""
+    n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
+    k2c = launches["gn_backward"] + launches["gn_backward_twopass"]
+    calls = sum(n * gn.bwd_channel_chunks(c, gn.NUM_GROUPS, itemsize)
+                for (_, _, c), n in gn_calls.items())
+    check(launches["gn_stats"] == n_silu + n_norm and launches["gn_apply"] == n_silu
+          and launches["gn_backward_calls"] == calls == k2c and n_silu > 0,
+          f"{label}: K2a {launches['gn_stats']}, K2b {launches['gn_apply']}, K2c calls "
+          f"{launches['gn_backward_calls']} ({k2c} launches, {calls} expected) for {n_silu} "
+          f"GN+SiLU and {n_norm} GroupNorm32 calls")
+    check(launches["attention"] + launches["attention_f32"] == 0,
+          f"{label}: K1 launched {launches['attention']} + {launches['attention_f32']} times")
+    allowed = {"gn_stats", "gn_apply", "gn_backward", "gn_backward_twopass", "gn_backward_calls",
+               "attention", "attention_f32"}
+    for k, v in launches.items():
+        check(k in allowed or v == 0, f"{label}: kernel {k} launched {v} times")
+
+
+def phase_ddpm(torch, np, engine, kc, gn, counters, card):
+    """(b) The CelebA-HQ DDPM (DDPMConfig's defaults, random weights from
+    seed 0) as the eps-net of the 3-step DDIM decoder, 92% random
+    inpainting at 256^2, 8 chains: one warm-up energy+grad evaluation (its
+    FLOPs counted by utils/profiling.compiled_flops) and DDPM_EVALS timed
+    ones, in bf16 and f32, each timed run's counts set to 0 just before and
+    read just after. Returns {dtype: record}."""
+    from nshmc_tpu_torch.cli import host_randn, image_generators
+    from nshmc_tpu_torch.models.ddpm_simple import DDPMConfig, DDPMModel
+    from nshmc_tpu_torch.operators import build_operator
+    from nshmc_tpu_torch.sampling import ddim
+    from nshmc_tpu_torch.schedules import DDIMSequence, DiffusionSchedule
+    from nshmc_tpu_torch.utils.profiling import compiled_flops
+
+    dev = torch.device("cuda")
+    cfg = DDPMConfig()
+    d = cfg.resolution
+    op = build_operator("inpaint_random", 3, d, np.random.default_rng(SEED), device=dev)
+    host, _ = image_generators(SEED + 60, dev)
+    y0 = op.H_img(2 * torch.from_numpy(synthetic_image(np, d, SEED + 60)).to(dev)[None] - 1)
+    y0 = y0 + 0.1 * host_randn(y0.shape, host, dev)
+    x = host_randn((CHAINS, d, d, 3), host, dev)
+    sched, seq = DiffusionSchedule.create(device=dev), DDIMSequence.create(1000, 3)
+    weights, out = None, {}
+    for dt in (torch.bfloat16, torch.float32):
+        dname = str(dt).split(".")[1]
+        model = DDPMModel(cfg, dtype=dt)
+        weights = weights or random_state_dict(torch, model, SEED)
+        model.load_state_dict(weights)
+        model = model.to(dev).eval()
+        loss_fn = engine.make_pixel_loss_fn(ddim.make_decoder(model, sched, seq), op, y0[0])
+        res = {}
+        flops = compiled_flops(lambda: res.setdefault("w", engine.value_and_grad(loss_fn, x)))
+        loss, dec, grad = res["w"]
+        check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all())
+              and dec.shape == (CHAINS, d, d, 3) and float(grad.abs().max()) > 0,
+              f"phase 11(b) DDPM {dname}: loss or gradient not finite, or zero")
+        label = f"phase 11(b) DDPM {dname}"
+        rec, launches, gn_calls, norm_calls, _ = counted_run(
+            torch, kc, gn, counters, model, lambda: engine.value_and_grad(loss_fn, x),
+            DDPM_EVALS, label)
+        check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize)
+        per = {k: v / DDPM_EVALS for k, v in launches.items() if v}
+        check(sum(gn_calls.values()) == 3 * DDPM_EVALS * sum(kc.DDPM_GN_SITES.values())
+              and sum(norm_calls.values()) == 3 * DDPM_EVALS * sum(kc.DDPM_NORM_SITES.values()),
+              f"{label}: {sum(gn_calls.values())} GN+SiLU and {sum(norm_calls.values())} "
+              f"GroupNorm32 calls for {DDPM_EVALS} evaluations of 3 forwards")
+        rec.update(evals_per_s=rec["per_s"], useful_tflop_per_eval=flops / 1e12,
+                   useful_tflop_per_s=flops * rec["per_s"] / 1e12, launches_per_eval=per,
+                   loss=loss.tolist(), dtype=dname, chains=CHAINS, card=card)
+        print(f"{label}: {DDPM_EVALS} energy+grad evals (3 DDPM forwards and their input "
+              f"gradient each), {CHAINS} chains, 256^2: {rec['s']:.3f} s, "
+              f"{rec['evals_per_s']:.3f} evals/s, peak memory {rec['peak_memory_gb']:.2f} GB "
+              f"({rec['allocated_before_gb']:.2f} allocated before), "
+              f"{flops / 1e12:.3f} TFLOP an eval (utils/profiling.compiled_flops), "
+              f"{rec['useful_tflop_per_s']:.1f} useful TFLOP/s; launches an eval {per}; "
+              f"plain versions 0, K1 0; {card}")
+        rec["launches"] = launches
+        out[dname] = rec
+        del model, loss_fn, res, loss, dec, grad
+    return out
+
+
+def phase_conditional(torch, kc, gn, counters, card):
+    """(c) configs/ffhq_latent.yaml's latent U-Net with context_dim 512,
+    transformer_depth 1 (SpatialTransformers at its 16 attention sites),
+    random weights, 8 chains at 64^2 and a random (8, 1, 512) context: a
+    warm-up, then one forward and the input gradient of sum(eps^2) counted,
+    in f32 and bf16. Returns {dtype: record}."""
+    from nshmc_tpu_torch.models.ldm import latent_unet_config
+    from nshmc_tpu_torch.models.unet import UNetModel
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(latent_unet_config(), context_dim=COND_CONTEXT_DIM,
+                              transformer_depth=1)
+    g = torch.Generator(device=dev).manual_seed(SEED + 70)
+    x = torch.randn((CHAINS, cfg.image_size, cfg.image_size, 3), generator=g, device=dev)
+    t = torch.full((CHAINS,), 500.0, device=dev)
+    ctx = torch.randn((CHAINS, 1, COND_CONTEXT_DIM), generator=g, device=dev)
+    weights, out = None, {}
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[1]
+        model = UNetModel(cfg, dtype=dt)
+        weights = weights or random_state_dict(torch, model, SEED + 71)
+        model.load_state_dict(weights)
+        model = model.to(dev).eval()
+
+        def fwd_grad():
+            xx = x.detach().requires_grad_(True)
+            eps = model(xx, t, context=ctx)
+            return eps, torch.autograd.grad((eps ** 2).sum(), xx)[0]
+
+        eps, grad = fwd_grad()
+        check(bool(torch.isfinite(eps).all() and torch.isfinite(grad).all())
+              and float(grad.abs().max()) > 0, f"phase 11(c) {dname}: not finite, or zero")
+        label = f"phase 11(c) conditional U-Net {dname}"
+        rec, launches, gn_calls, norm_calls, attn_calls = counted_run(
+            torch, kc, gn, counters, model, fwd_grad, 1, label)
+        check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize)
+        check(norm_calls == kc.COND_UNET_NORM_SITES and not attn_calls
+              and gn_calls == kc.LATENT_UNET_GN_SITES,
+              f"{label}: GroupNorm32 sites {norm_calls}, GN+SiLU {gn_calls}, attention "
+              f"blocks {attn_calls}")
+        rec.update(ms=1e3 * rec["s"], launches_nonzero={k: v for k, v in launches.items() if v},
+                   dtype=dname, chains=CHAINS, card=card)
+        print(f"{label}: forward + input gradient, {CHAINS} chains, (8, 1, 512) context: "
+              f"{rec['ms']:.1f} ms, peak memory {rec['peak_memory_gb']:.2f} GB; launches "
+              f"{rec['launches_nonzero']} (K2a at the 16 SpatialTransformer norms too); K1 0, "
+              f"plain versions 0; {card}")
+        rec["launches"] = launches
+        out[dname] = rec
+        del model, eps, grad
+    return out
+
+
+def phase_class_conditional(torch, np, engine, gn, kc, counters, main_counts, mcfg, sched, seq,
+                            op, y0, card):
+    """(d) configs/ffhq.yaml's U-Net with num_classes 1000 (label_emb),
+    random weights and labels, bf16, 8 chains: a warm-up energy+grad
+    evaluation through the 3-step decoder and one counted, whose launches
+    must be the main path's an evaluation (K1 12, K2a, K2b, K2c as phase
+    2). Returns its record."""
+    from nshmc_tpu_torch.models.unet import UNetModel
+    from nshmc_tpu_torch.sampling import ddim
+
+    dev = torch.device("cuda")
+    main_launches, main_evals = main_counts
+    model = UNetModel(dataclasses.replace(mcfg, num_classes=N_CLASSES), dtype=torch.bfloat16)
+    model.load_state_dict(random_state_dict(torch, model, SEED + 80))
+    model = model.to(dev).eval()
+    g = torch.Generator(device=dev).manual_seed(SEED + 81)
+    labels = torch.randint(0, N_CLASSES, (CHAINS,), generator=g, device=dev)
+    x = torch.randn((CHAINS, mcfg.image_size, mcfg.image_size, 3), generator=g, device=dev)
+    decode = ddim.make_decoder(lambda xx, tt: model(xx, tt, y=labels), sched, seq)
+    loss_fn = engine.make_pixel_loss_fn(decode, op, y0[0])
+    loss, _, grad = engine.value_and_grad(loss_fn, x)
+    check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all()),
+          "phase 11(d): not finite")
+    label = "phase 11(d) class-conditional flagship bf16"
+    rec, launches, _, _, attn_calls = counted_run(
+        torch, kc, gn, counters, model, lambda: engine.value_and_grad(loss_fn, x), 1, label)
+    for k, v in launches.items():
+        if k != "gn_backward_calls":
+            check(v * main_evals == main_launches[k], f"{label}: kernel {k} launched {v} "
+                                                      f"times, the main path "
+                                                      f"{main_launches[k] / main_evals} an eval")
+    check(launches["attention"] == 12 == sum(attn_calls.values()),
+          f"{label}: K1 {launches['attention']}, attention blocks {attn_calls}")
+    rec.update(ms=1e3 * rec["s"], launches_nonzero={k: v for k, v in launches.items() if v},
+               labels=labels.tolist(), card=card)
+    print(f"{label}: one energy+grad evaluation (3 U-Net forwards with label_emb), {CHAINS} "
+          f"chains: {rec['ms']:.1f} ms, peak memory {rec['peak_memory_gb']:.2f} GB; launches "
+          f"{rec['launches_nonzero']}, the main path's an evaluation; plain versions 0; {card}")
+    rec["launches"] = launches
+    return rec
+
+
+def phase_lpips(torch, np, card):
+    """(e) LPIPS-VGG (random weights) on (8, 256, 256, 3) f32 on the card,
+    timed (CUDA events), and at batch 2 against the CPU; then the pixel CLI
+    (--algo ddnm, configs/ffhq.yaml) with random weight files where
+    try_load_lpips looks (TORCH_HOME, and a stand-in lpips package on the
+    subprocess's PYTHONPATH): its record must hold lpips."""
+    dev = torch.device("cuda")
+    lp = lpips_model(torch, SEED + 90)
+    g = torch.Generator().manual_seed(SEED + 91)
+    a, b = (torch.rand((CHAINS, 256, 256, 3), generator=g) * 2 - 1 for _ in range(2))
+    ref = lp(a[:2], b[:2])
+    lp, ad, bd = lp.to(dev), a.to(dev), b.to(dev)
+    full = lp(ad, bd)
+    ms = time_ms(lambda: lp(ad, bd), iters=5, warmup=1)
+    err = float((full[:2].cpu() - ref).abs().max() / ref.abs().max())
+    check(bool(torch.isfinite(full).all()) and err <= BASELINE_TOL,
+          f"phase 11(e) LPIPS at 256^2: card vs CPU {err:.2e}")
+    print(f"phase 11(e) LPIPS-VGG (8, 256, 256, 3) f32: {ms:.3f} ms a call (CUDA events, "
+          f"host included), batch 2 card vs CPU {err:.2e} (bar {BASELINE_TOL}); {card}")
+    with tempfile.TemporaryDirectory() as tmp:
+        from PIL import Image
+        from nshmc_tpu_torch.utils import lpips
+
+        vgg_sd, lin_sd = lpips_weights(torch, SEED + 92)
+        ckpt = os.path.join(tmp, "torch", "hub", "checkpoints")
+        heads = os.path.join(tmp, "site", "lpips", "weights", "v0.1")
+        os.makedirs(ckpt)
+        os.makedirs(heads)
+        torch.save(vgg_sd, os.path.join(ckpt, lpips.VGG16_FILE))
+        torch.save(lin_sd, os.path.join(heads, "vgg.pth"))
+        open(os.path.join(tmp, "site", "lpips", "__init__.py"), "w").close()
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        Image.fromarray((synthetic_image(np, 256, SEED + 93) * 255).astype(np.uint8)).save(
+            os.path.join(data, "face.png"))
+        env = dict(os.environ, TORCH_HOME=os.path.join(tmp, "torch"),
+                   PYTHONPATH=os.pathsep.join(
+                       [os.path.join(tmp, "site")]
+                       + ([os.environ["PYTHONPATH"]] if os.environ.get("PYTHONPATH") else [])))
+        cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config",
+               os.path.join(ROOT, "configs", "ffhq.yaml"), "--device", "cuda", "--algo", "ddnm",
+               "--deg", "inpaint_random", "--data_path", data, "-i", os.path.join(tmp, "out")]
+        t0 = time.time()
+        r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        lines = r.stdout.strip().splitlines()
+        check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"')
+              and "LPIPS: VGG weights loaded" in lines,
+              f"CLI with LPIPS failed (rc {r.returncode}):\n{r.stdout[-3000:]}\n"
+              f"{r.stderr[-3000:]}")
+        with open(os.path.join(tmp, "out", "metrics.jsonl")) as f:
+            rec = json.loads(f.readline())
+        check(math.isfinite(rec.get("lpips", float("nan"))), f"CLI record without lpips: {rec}")
+        print(f"phase 11(e) CLI --algo ddnm (configs/ffhq.yaml, cuda) with local LPIPS weights "
+              f"in {time.time() - t0:.1f} s: record {rec}")
+    return dict(ms=ms, batch=CHAINS, size=256, card_vs_cpu=err, cli_lpips=rec["lpips"], card=card)
+
+
+def phase_ddpm_kernels(torch, gn, kc):
+    """(f) K2a, K2b and K2c against their plain versions at every DDPM
+    GN+SiLU site shape (kernel_check.DDPM_GN_SITES, eps 1e-6) and K2a at its
+    GroupNorm32 sites, bf16 and f32, phase 3's bars (K2a two calls
+    bit-identical; K2b both affine forms; K2c each design that can take the
+    call and the wrapper, both forms, two calls bit-identical); the design
+    `bwd_design` picks at each shape, timed in both dtypes beside the plain
+    version, the F.group_norm + F.silu backward and the bound. Returns
+    {K2c kernel: [records]}."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(SEED + 95)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    eps = kc.DDPM_EPS
+    out = {"gn_backward": [], "gn_backward_twopass": []}
+    picks = {}
+    for shape in kc.DDPM_GN_SITES:
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[1]
+            x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+            st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+            check(st["ok"], f"(f) K2a DDPM {shape} {dname}: {kc.stats_summary(st)}")
+            for form in kc.AFFINE_FORMS:
+                ok, err = apply_check(torch, gn, x, form, g)
+                check(ok, f"(f) K2b DDPM {shape} {dname} {form}: apply max {err:.2e}")
+                inputs = kc.gn_inputs(shape, dt, form, g, dev, eps)
+                for design in (*gn.bwd_designs(*shape, dt.itemsize, sms), None):
+                    res = kc.gn_backward_check(*inputs, design=design)
+                    check(res["ok"], f"(f) K2c {design or 'wrapper'} DDPM {shape} {dname} "
+                                     f"{form}: {res}")
+            design = gn.bwd_design(*shape, dt.itemsize, sms)
+            picks[f"{shape} {dname}"] = design
+            rec = gn_backward_times(torch, gn, kc, shape, dt, design, eps, g, dev, "DDPM site")
+            out[BWD_KERNELS[design]].append({**rec, "eps": eps, "sites": kc.DDPM_GN_SITES[shape]})
+            del x
+    for shape in kc.DDPM_NORM_SITES:
+        for dt in (torch.bfloat16, torch.float32):
+            x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+            st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+            check(st["ok"], f"(f) K2a DDPM GroupNorm32 {shape} {dt}: {kc.stats_summary(st)}")
+    print(f"phase 11(f) K2a, K2b and K2c at the DDPM's {len(kc.DDPM_GN_SITES)} GN+SiLU shapes "
+          f"(eps {eps:g}, bf16 and f32) and K2a at its GroupNorm32 shapes agree with their plain "
+          f"versions at phase 3's bars; bwd_design picks {json.dumps(picks)}")
+    return out, picks
+
+
 def main():
+    t_start = time.time()
     args = sys.argv[1:]
     trace_dir = None
     if args[:1] == ["--trace"] and len(args) == 2:
@@ -2581,6 +2987,17 @@ def main():
     phase_baseline_cli(np, LATENT_CFG, "resample", d)
     print(f"phase 10 (the iterative baselines) took {time.time() - t0:.1f} s")
 
+    # ---- 11. the remaining models and utilities -------------------------------------------------
+    t0 = time.time()
+    models_small = phase_models_small(torch, np)
+    ddpm_runs = phase_ddpm(torch, np, engine, kc, gn, counters, card)
+    cond_runs = phase_conditional(torch, kc, gn, counters, card)
+    class_run = phase_class_conditional(torch, np, engine, gn, kc, counters, (launches, n_evals),
+                                        mcfg, sched, seq, op, y0, card)
+    lpips_run = phase_lpips(torch, np, card)
+    ddpm_kernels, ddpm_picks = phase_ddpm_kernels(torch, gn, kc)
+    print(f"phase 11 (the remaining models and utilities) took {time.time() - t0:.1f} s")
+
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
         if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
@@ -2604,7 +3021,10 @@ def main():
     paths = {"flagship bf16": launches, "latent bf16": latent_bf16["launches"],
              "latent f32": latent_f32["launches"],
              **{f"phase 9 {k}": r_["launches"] for k, r_ in p9.records.items()},
-             **{f"phase 10 {k}": r_["launches"] for k, r_ in baselines.items()}}
+             **{f"phase 10 {k}": r_["launches"] for k, r_ in baselines.items()},
+             **{f"phase 11 DDPM {k}": r_["launches"] for k, r_ in ddpm_runs.items()},
+             **{f"phase 11 conditional {k}": r_["launches"] for k, r_ in cond_runs.items()},
+             "phase 11 class-conditional bfloat16": class_run["launches"]}
 
     kernels = []
     for name, (route, src, replaces) in sources.items():
@@ -2628,6 +3048,7 @@ def main():
                         **({"flagship_shapes": attn_f32} if name == "attention_f32" else {}),
                         **({"batch1_shapes": baseline_kernels[name]}
                            if name in baseline_kernels else {}),
+                        **({"ddpm_shapes": ddpm_kernels[name]} if name in ddpm_kernels else {}),
                         **({"flagship_shapes": [stats_record(v) for v in stats_records
                                                 if v["path"] == "flagship"]}
                            if name == "gn_stats" else {}),
@@ -2646,6 +3067,7 @@ def main():
                 "attempts": run["attempts"], "n_leapfrog": run["n_leapfrog"],
                 "attempt_s": run["attempt_s"], "dtype": run["dtype"]}
 
+    print(f"chip_smoke.py took {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels, "main_path": {
         "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
@@ -2657,7 +3079,14 @@ def main():
         "batch16_gradient_noise": p9.batch_noise,
         "baseline_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
                            for k, r_ in baselines.items()},
-        "baselines_card_vs_cpu": baseline_errs}))
+        "baselines_card_vs_cpu": baseline_errs,
+        "models_card_vs_cpu": models_small,
+        "ddpm_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
+                       for k, r_ in ddpm_runs.items()},
+        "conditional_unet": {k: {f: v for f, v in r_.items() if f != "launches"}
+                             for k, r_ in cond_runs.items()},
+        "class_conditional": {f: v for f, v in class_run.items() if f != "launches"},
+        "lpips": lpips_run, "ddpm_k2c_picks": ddpm_picks}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -11,7 +11,8 @@ doubled for the [-1, 1] range, as nshmc_tpu/cli.py:261 does), runs the
 chains as one batch (or in waves, `--chain_chunk`) or the baseline from one
 x_T, and writes
 {idx}.png, orig_{idx}.png, y0_{idx}.png, std_dev_map_{idx}.png,
-metrics.jsonl and a final {"summary": ...} line; with `--save_epochs` the
+metrics.jsonl (PSNR, SSIM, and LPIPS where its weights are found locally,
+utils/lpips.py::try_load_lpips) and a final {"summary": ...} line; with `--save_epochs` the
 per-accept hmc_{e}.png and hmc_trail_{idx}.json, with `--diagnostics`
 diagnostics_{idx}.json. `--checkpoint-dir` snapshots and resumes each
 image's chains. Runs on CUDA unless `--device cpu` is given.
@@ -79,7 +80,7 @@ def get_parser():
     p.add_argument("--image_batch", type=int, default=1,
                    help="run HMC on N images at once: N x chains as one batch")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard chains over N devices (not ported: ROADMAP.md Queue 1 item 6)")
+                   help="shard chains over N devices (not ported: ROADMAP.md Queue 1 item 2)")
     p.add_argument("--ckpt", default="",
                    help="reference checkpoint (random init if absent)")
     p.add_argument("--checkpoint-dir", default="",
@@ -129,7 +130,7 @@ def _check_ported(opt):
     if opt.mesh > 1:
         raise NotImplementedError(
             "--mesh is not ported to nshmc_tpu_torch yet: sharding chains over devices is "
-            "ROADMAP.md, Queue 1 item 6")
+            "ROADMAP.md, Queue 1 item 2")
 
 
 def _device(name: str) -> torch.device:
@@ -179,10 +180,22 @@ def observe(opt, operator, path, idx, d, sigma_0, host, device):
     return x01, y0
 
 
-def record(opt, idx, path, samples01, x01, dt, stats):
+def load_lpips(device):
+    """The LPIPS metric on `device` where its weights are found locally, else
+    None (utils/lpips.py::try_load_lpips; any other failure raises)."""
+    from .utils import lpips
+
+    fn = lpips.try_load_lpips(device)
+    print("LPIPS: " + ("VGG weights loaded" if fn is not None else
+                       "no local VGG / lpips weights, not reported"))
+    return fn
+
+
+def record(opt, idx, path, samples01, x01, dt, stats, lpips_fn=None):
     """Write {idx}.png (the last sample), std_dev_map_{idx}.png (several
     samples) and the image's metrics.jsonl line; add PSNR and SSIM of every
-    sample (S, H, W, C) in [0, 1] to `stats`."""
+    sample (S, H, W, C) in [0, 1] to `stats`, and LPIPS, computed on the
+    CLI's device, where `lpips_fn` is given."""
     from .utils import images as im
     from .utils.metrics import psnr, ssim
 
@@ -191,6 +204,9 @@ def record(opt, idx, path, samples01, x01, dt, stats):
         im.save_std_dev_map(samples01, os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
     origs = torch.from_numpy(x01)[None].expand_as(samples01)
     vals = {"psnr": psnr(samples01, origs).numpy(), "ssim": ssim(samples01, origs).numpy()}
+    if lpips_fn is not None:
+        dev = torch.device(opt.device)
+        vals["lpips"] = lpips_fn(2 * samples01.to(dev) - 1, 2 * origs.to(dev) - 1).cpu().numpy()
     stats.update(vals)
     rec = {"idx": idx, "file": os.path.basename(path), "algo": opt.algo,
            "deg": opt.deg, "wall_s": round(dt, 2),
@@ -250,9 +266,10 @@ def run_pixel(opt):
     files = files[opt.subset_start:opt.subset_end]
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
+    lpips_fn = load_lpips(device)
     if opt.algo == "hmc" and opt.image_batch > 1:
         return _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
-                                      device, stats)
+                                      device, stats, lpips_fn)
     run = {"hmc": _pixel_hmc, "hmc_cond": _pixel_hmc_cond}.get(opt.algo, _pixel_dmplug)
     if opt.algo in PIXEL_BASELINES:
         run = functools.partial(_pixel_baseline, model=model, sched=sched, seq=seq)
@@ -264,7 +281,7 @@ def run_pixel(opt):
                          device)
         samples = run(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen)
         samples01 = im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu()
-        record(opt, idx, path, samples01, x01, time.time() - t0, stats)
+        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn)
 
     summary = stats.summary()
     print(json.dumps({"summary": summary}))
@@ -376,7 +393,7 @@ def _pixel_dmplug(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
 
 
 def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0, device,
-                           stats):
+                           stats, lpips_fn):
     """--image_batch N: N images x chains as one batch (run_hmc_multi,
     nshmc_tpu/cli.py:540-616). Each image draws y0's noise, its initial
     state and its momenta from its own generators, as it would alone."""
@@ -402,7 +419,7 @@ def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
         for bi, (idx, path) in enumerate(batch):
             samples = out.samples[bi * opt.chains:(bi + 1) * opt.chains]
             record(opt, idx, path, im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu(),
-                   origs[bi], dt, stats)
+                   origs[bi], dt, stats, lpips_fn)
     summary = stats.summary()
     print(json.dumps({"summary": summary}))
     return summary

@@ -76,7 +76,7 @@ def build_latent_model(cfg, opt, device):
 
 def run_latent(opt):
     from .cli import (_check_ported, _device, host_randn, image_generators, load_config,
-                      observe, record)
+                      load_lpips, observe, record)
     from .hmc.latent import (LatentHMCConfig, init_latent_chains, make_latent_loss_fn,
                              run_latent_hmc)
     from .operators import build_operator
@@ -106,6 +106,7 @@ def run_latent(opt):
     files = files[opt.subset_start:opt.subset_end]
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
+    lpips_fn = load_lpips(device)
     for idx, path in enumerate(files):
         host, gen = image_generators(opt.seed + idx, device)
         x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
@@ -114,7 +115,7 @@ def run_latent(opt):
             z = host_randn((1, *z_shape), host, device)
             samples = _latent_resample(opt, ldm, seq, operator, sigma_0, y0, z, gen)
             record(opt, idx, path, im.inverse_data_transform(samples).cpu(), x01,
-                   time.time() - t0, stats)
+                   time.time() - t0, stats, lpips_fn)
             continue
 
         def report(states, rnd):
@@ -148,7 +149,7 @@ def run_latent(opt):
             samples = torch.cat([ldm.decode_first_stage(z)
                                  for z in z0.split(max(1, opt.chains))])
         samples01 = im.inverse_data_transform(samples).cpu()
-        record(opt, idx, path, samples01, x01, time.time() - t0, stats)
+        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn)
 
     summary = stats.summary()
     print(json.dumps({"summary": summary}))

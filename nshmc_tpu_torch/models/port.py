@@ -12,6 +12,12 @@ port state_dict, the inverse of nshmc_tpu/models/port.py::_convert:
   conv1d  (I, O)         -> (O, I, 1)      [attention qkv / proj_out]
   dense   (I, O)         -> (O, I)
   groupnorm scale/bias   -> weight/bias
+  embed   (N, D)         -> (N, D)           [label_emb]
+
+Where `context_dim` is set, each attention site is a SpatialTransformer: its
+JAX subtree maps under the site's prefix through models/ldm/transformer.py::
+spatial_transformer_state_dict_from_jax (the JAX package's own mapping
+knows only AttentionBlock sites there).
 """
 from __future__ import annotations
 
@@ -36,7 +42,9 @@ def _resblock_entries(jax_prefix: str, torch_prefix: str, has_skip: bool):
     return out
 
 
-def _attn_entries(jax_prefix: str, torch_prefix: str):
+def _attn_entries(jax_prefix: str, torch_prefix: str, conditional: bool = False):
+    if conditional:
+        return {jax_prefix: (torch_prefix, "spatial_transformer")}
     return {
         f"{jax_prefix}/norm": (f"{torch_prefix}.norm", "groupnorm"),
         f"{jax_prefix}/qkv": (f"{torch_prefix}.qkv", "conv1d"),
@@ -57,6 +65,7 @@ def adm_param_mapping(cfg: UNetConfig) -> Dict[str, Tuple[str, str]]:
     if cfg.num_classes is not None:
         m["label_emb"] = ("label_emb", "embed")
 
+    cond = cfg.context_dim is not None
     mc = cfg.model_channels
     ch = int(cfg.channel_mult[0] * mc)
     input_chans = [ch]
@@ -69,7 +78,7 @@ def adm_param_mapping(cfg: UNetConfig) -> Dict[str, Tuple[str, str]]:
                                        has_skip=(ch != out_ch)))
             ch = out_ch
             if ds in cfg.attention_ds:
-                m.update(_attn_entries(f"down_{level}_{i}/attn", f"input_blocks.{idx}.1"))
+                m.update(_attn_entries(f"down_{level}_{i}/attn", f"input_blocks.{idx}.1", cond))
             input_chans.append(ch)
             idx += 1
         if level != len(cfg.channel_mult) - 1:
@@ -83,7 +92,7 @@ def adm_param_mapping(cfg: UNetConfig) -> Dict[str, Tuple[str, str]]:
             ds *= 2
 
     m.update(_resblock_entries("middle/res1", "middle_block.0", has_skip=False))
-    m.update(_attn_entries("middle/attn", "middle_block.1"))
+    m.update(_attn_entries("middle/attn", "middle_block.1", cond))
     m.update(_resblock_entries("middle/res2", "middle_block.2", has_skip=False))
 
     idx = 0
@@ -96,7 +105,8 @@ def adm_param_mapping(cfg: UNetConfig) -> Dict[str, Tuple[str, str]]:
             ch = out_ch
             j = 1
             if ds in cfg.attention_ds:
-                m.update(_attn_entries(f"up_{level}_{i}/attn", f"output_blocks.{idx}.{j}"))
+                m.update(_attn_entries(f"up_{level}_{i}/attn", f"output_blocks.{idx}.{j}",
+                                       cond))
                 j += 1
             if level and i == cfg.num_res_blocks:
                 if cfg.resblock_updown:
@@ -123,6 +133,10 @@ def _from_jax(kind: str, leaves) -> Dict[str, np.ndarray]:
         return {"weight": np.asarray(leaves["scale"]), "bias": np.asarray(leaves["bias"])}
     if kind == "embed":
         return {"weight": np.asarray(leaves["embedding"])}
+    if kind == "spatial_transformer":
+        from .ldm.transformer import spatial_transformer_state_dict_from_jax
+
+        return spatial_transformer_state_dict_from_jax(leaves)
     raise ValueError(f"layer kind {kind!r} is not ported")
 
 

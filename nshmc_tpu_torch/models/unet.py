@@ -18,6 +18,12 @@ norm, resblock up/down, learn_sigma (6 output channels).
     resolution is >= remat_min_res run under torch.utils.checkpoint.
   - The U-Net is a frozen prior: parameters have requires_grad=False, so a
     backward pass computes input gradients only.
+  - Class-conditional (`num_classes`): `label_emb`, an fp32 embedding table
+    added to the timestep embedding (which it promotes to fp32, as JAX
+    does). Conditional (`context_dim`): every attention site is a
+    cross-attention SpatialTransformer (models/ldm/transformer.py) of
+    `transformer_depth` blocks in place of AttentionBlock, and `context`
+    reaches each of them, checkpointed units included.
 """
 from __future__ import annotations
 
@@ -54,6 +60,9 @@ class UNetConfig:
     # JAX default); "none": store every activation
     remat: str = "big"
     remat_min_res: int = 128
+    # conditional U-Net: SpatialTransformer at the attention sites
+    context_dim: Optional[int] = None
+    transformer_depth: int = 1
 
     @classmethod
     def from_model_yaml(cls, **kw) -> "UNetConfig":
@@ -132,7 +141,8 @@ class ResBlock(nn.Module):
         elif self.down:
             h, x = avg_pool_2x(h), avg_pool_2x(x)
         h = self.in_layers[2](h)
-        emb_out = self.emb_layers[1](F.silu(emb)).to(h.dtype)
+        lin = self.emb_layers[1]
+        emb_out = lin(F.silu(emb).to(lin.weight.dtype)).to(h.dtype)
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
             h = self.out_layers[0](h, scale, shift)  # GN -> h*(1+s)+shift -> SiLU
@@ -193,23 +203,29 @@ class TimestepBlock(nn.ModuleList):
     """A run of layers where ResBlocks also take the embedding: one unit of
     the JAX model, and the unit of activation checkpointing."""
 
-    def forward(self, h: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, emb: torch.Tensor,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
         for layer in self:
-            h = layer(h, emb) if isinstance(layer, ResBlock) else layer(h)
+            if isinstance(layer, ResBlock):
+                h = layer(h, emb)
+            elif getattr(layer, "takes_context", False):  # a SpatialTransformer
+                h = layer(h, context)
+            else:
+                h = layer(h)
         return h
 
 
 class UNetModel(nn.Module):
     """The full ADM U-Net (nshmc_tpu/models/unet.py:363-481).
 
-    forward(x, timesteps): x (B, H, W, C) NHWC, timesteps (B,) float ->
-    (B, H, W, out_channels) float32. Callers slice [..., :3] for epsilon.
+    forward(x, timesteps, y=None, context=None): x (B, H, W, C) NHWC,
+    timesteps (B,) float, class labels y (B,) int where num_classes is set,
+    context (B, S, context_dim) where context_dim is set -> (B, H, W,
+    out_channels) float32. Callers slice [..., :3] for epsilon.
     """
 
     def __init__(self, cfg: UNetConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
-        if cfg.num_classes is not None:
-            raise NotImplementedError("class-conditional U-Net: not ported (ROADMAP.md)")
         if cfg.remat not in ("big", "none"):
             raise ValueError(f"remat policy {cfg.remat!r}: 'big' or 'none'")
         self.cfg, self.dtype = cfg, dtype
@@ -217,12 +233,23 @@ class UNetModel(nn.Module):
         time_dim = mc * 4
         self.time_embed = nn.Sequential(nn.Linear(mc, time_dim), nn.SiLU(),
                                         nn.Linear(time_dim, time_dim))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, time_dim)
 
         def res(cin, cout, **kw):
             return ResBlock(cin, time_dim, cout, cfg.use_scale_shift_norm, **kw)
 
         def attn(c, heads):
-            return AttentionBlock(c, heads, cfg.num_head_channels)
+            """AttentionBlock, or a SpatialTransformer where context_dim is
+            set (nshmc_tpu/models/unet.py:256-283)."""
+            if cfg.context_dim is None:
+                return AttentionBlock(c, heads, cfg.num_head_channels)
+            from .ldm.transformer import SpatialTransformer  # ldm imports this module
+
+            n_heads, d_head = ((heads, c // heads) if cfg.num_head_channels == -1
+                               else (c // cfg.num_head_channels, cfg.num_head_channels))
+            return SpatialTransformer(c, n_heads, d_head, cfg.transformer_depth,
+                                      cfg.context_dim)
 
         ch = int(cfg.channel_mult[0] * mc)
         self.input_blocks = nn.ModuleList([TimestepBlock([_conv(cfg.in_channels, ch)])])
@@ -278,25 +305,32 @@ class UNetModel(nn.Module):
                 m.to(memory_format=torch.channels_last)
         self.requires_grad_(False)
 
-    def _run(self, block: TimestepBlock, res: Optional[int], h, emb):
+    def _run(self, block: TimestepBlock, res: Optional[int], h, emb, context):
         cfg = self.cfg
         if (cfg.remat == "big" and res is not None and res >= cfg.remat_min_res
                 and torch.is_grad_enabled()):
-            return checkpoint(block, h, emb, use_reentrant=False)
-        return block(h, emb)
+            return checkpoint(block, h, emb, context, use_reentrant=False)
+        return block(h, emb, context)
 
-    def forward(self, x: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
-        emb = timestep_embedding(timesteps, self.cfg.model_channels).to(self.dtype)
+    def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
+                y: Optional[torch.Tensor] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        cfg = self.cfg
+        if (y is None) != (cfg.num_classes is None):
+            raise ValueError("class labels y must be given exactly when num_classes is set")
+        emb = timestep_embedding(timesteps, cfg.model_channels).to(self.dtype)
         emb = self.time_embed[2](F.silu(self.time_embed[0](emb)))
+        if cfg.num_classes is not None:
+            emb = emb + self.label_emb(y)  # the fp32 table promotes emb to fp32
 
         h = nchw(x).to(self.dtype)
         hs = []
         for block, res in zip(self.input_blocks, self._input_res):
-            h = self._run(block, res, h, emb)
+            h = self._run(block, res, h, emb, context)
             hs.append(h)
-        h = self._run(self.middle_block, self._middle_res, h, emb)
+        h = self._run(self.middle_block, self._middle_res, h, emb, context)
         for block, res in zip(self.output_blocks, self._output_res):
             h = torch.cat([h, hs.pop().to(h.dtype)], dim=1)
-            h = self._run(block, res, h, emb)
+            h = self._run(block, res, h, emb, context)
         h = self.out[2](self.out[0](h))  # GN -> SiLU -> conv
         return nhwc(h).float()

@@ -26,7 +26,11 @@ checks, on seeded random inputs:
     group), and in f32 at the same sites at batch 1 (BATCH1_GN_SITES, the
     ReSamples' gradients): each design that can take the call, and the
     wrapper, which cuts the f32 calls wider than 1024 channels into chunks
-    of whole groups; K1 in f32 at the latent U-Net's batch-1 shapes.
+    of whole groups; K1 in f32 at the latent U-Net's batch-1 shapes;
+  - K2a and K2c at the CelebA-HQ DDPM's 65 GN+SiLU sites (DDPM_GN_SITES,
+    18 of the flagship's shapes at eps 1e-6) in bf16 and f32, and K2a at its
+    GroupNorm32 sites and the conditional U-Net's SpatialTransformer norms
+    (DDPM_NORM_SITES, COND_UNET_NORM_SITES, eps 1e-6).
 Each case prints one line; the run exits 1 if any case disagrees. No time
 is measured: this is the build-and-check step before a kernel is timed.
 `chip_smoke.py` phase 3 uses the same checks at the main path's shapes.
@@ -123,11 +127,29 @@ BATCH1_ATTN_SHAPES = [(1, t, h, ch) for (_, t, h, ch) in LATENT_ATTN_SHAPES]
 FLAGSHIP_NORM_SITES = {(8, 256, 512): 3, (8, 64, 512): 1}
 LATENT_UNET_NORM_SITES = {(8, 1024, 448): 5, (8, 256, 672): 5, (8, 64, 896): 6}
 VQ_DECODER_NORM_SITES = {(8, 4096, 512): 1}
-# every (shape, eps) at which K2a runs on the three paths, and GN_SHAPES
+# the CelebA-HQ DDPM's (models/ddpm_simple.py, DDPMConfig's defaults: ch 128,
+# mult 1,1,2,2,4,4, 2 ResBlocks a level, attention at 16, 256^2) GN+SiLU sites
+# at 8 chains, eps 1e-6: 65 a forward over 18 shapes, each one of the
+# flagship's (the decoder half's inputs carry the skip channels) ...
+DDPM_EPS = 1e-6
+DDPM_GN_SITES = {(8, 65536, 256): 3, (8, 65536, 128): 8, (8, 16384, 384): 1,
+                 (8, 16384, 256): 2, (8, 16384, 128): 7, (8, 4096, 512): 2,
+                 (8, 4096, 384): 1, (8, 4096, 256): 6, (8, 4096, 128): 1,
+                 (8, 1024, 768): 1, (8, 1024, 512): 2, (8, 1024, 256): 7,
+                 (8, 256, 1024): 2, (8, 256, 768): 1, (8, 256, 512): 6, (8, 256, 256): 1,
+                 (8, 64, 1024): 3, (8, 64, 512): 11}
+# ... and its 6 AttnBlock norms (GroupNorm32, K2a alone)
+DDPM_NORM_SITES = {(8, 256, 512): 5, (8, 64, 512): 1}
+# the conditional U-Net (configs/ffhq_latent.yaml's latent U-Net with
+# context_dim set): a SpatialTransformer's GroupNorm32 at each of the latent
+# U-Net's attention sites, eps 1e-6
+COND_UNET_NORM_SITES = dict(LATENT_UNET_NORM_SITES)
+# every (shape, eps) at which K2a runs on the paths, and GN_SHAPES
 STATS_CASES = list(dict.fromkeys(
     [(s, 1e-5) for s in [*FLAGSHIP_GN_SITES, *FLAGSHIP_NORM_SITES, *GN_SHAPES]]
     + [(s, 1e-6) for s in [*VQ_DECODER_GN_SITES, *VQ_DECODER_NORM_SITES]]
-    + [(s, 1e-5) for s in [*LATENT_UNET_GN_SITES, *LATENT_UNET_NORM_SITES]]))
+    + [(s, 1e-5) for s in [*LATENT_UNET_GN_SITES, *LATENT_UNET_NORM_SITES]]
+    + [(s, DDPM_EPS) for s in [*DDPM_GN_SITES, *DDPM_NORM_SITES, *COND_UNET_NORM_SITES]]))
 GN_BWD_DESIGNS = {"one_launch": gn.launch_one, "twopass": gn.launch_twopass}
 AFFINE_FORMS = ("per_channel", "per_batch_channel")
 
@@ -404,6 +426,8 @@ def main() -> int:
              for shape in sites for dt in (torch.bfloat16, torch.float32)]
     cases += [(f"{part} batch 1", eps, shape, torch.float32)
               for part, (eps, sites) in BATCH1_GN_SITES.items() for shape in sites]
+    cases += [("ddpm", DDPM_EPS, shape, dt) for shape in DDPM_GN_SITES
+              for dt in (torch.bfloat16, torch.float32)]
     for part, eps, shape, dt in cases:
         designs = gn.bwd_designs(*shape, dt.itemsize, sms)
         for form in AFFINE_FORMS:

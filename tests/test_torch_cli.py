@@ -54,7 +54,7 @@ def test_cli_hmc_runs_and_writes_artifacts(tmp_path, capsys):
                                   ["--algo", "reddiff", "--mesh", "2"],
                                   ["--algo", "resample", "--mesh", "2"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """--mesh > 1 (ROADMAP.md, Queue 1 item 6) with any algorithm, the
+    """--mesh > 1 (ROADMAP.md, Queue 1 item 2) with any algorithm, the
     baselines included since they are ported, and a name that is no
     algorithm, raise before any output."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):

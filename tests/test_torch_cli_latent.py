@@ -66,7 +66,7 @@ def test_extract_kept_samples_matches_jax():
 def test_cli_unported_latent_algos_raise(tmp_path, algo):
     """Both ReSamples are ported (tests/test_torch_cli_baselines.py); what
     stays unported with them, --mesh > 1, raises before any output."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 2"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu",
                   "--algo", algo, "--mesh", "2"])
     assert not (tmp_path / "o").exists()

@@ -152,6 +152,6 @@ def test_parser_takes_every_jax_flag_but_noise():
 
 
 def test_mesh_raises_with_its_pointer(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
         cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", "--mesh", "2"])
     assert not (tmp_path / "o").exists()

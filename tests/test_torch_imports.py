@@ -42,7 +42,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    "algos/__init__.py", "algos/base.py", "algos/spectral.py",
                    "algos/guided.py", "algos/optim_based.py", "algos/resample.py",
                    "sampling/loop.py", "sampling/resample_original.py",
-                   "solvers/sf_adamw.py", "solvers/adamw.py"):
+                   "solvers/sf_adamw.py", "solvers/adamw.py",
+                   # the remaining models and utilities
+                   "models/ddpm_simple.py", "models/ldm/transformer.py", "models/__init__.py",
+                   "utils/lpips.py", "utils/datasets.py", "utils/lmdb_reader.py",
+                   "utils/profiling.py", "utils/ckpt_util.py"):
         assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -103,7 +107,9 @@ def test_entry_points_default_to_cuda():
                   "nshmc_tpu_torch.hmc.latent.init_latent_chains",
                   "nshmc_tpu_torch.hmc.adaptation.init_conditioned_chains",
                   "nshmc_tpu_torch.hmc.adaptation.DualAveragingState.create",
-                  "nshmc_tpu_torch.models.ldm.ldm.LatentDiffusion.create"):
+                  "nshmc_tpu_torch.models.ldm.ldm.LatentDiffusion.create",
+                  "nshmc_tpu_torch.models.ddpm_simple.load_ddpm_checkpoint",
+                  "nshmc_tpu_torch.utils.lpips.try_load_lpips"):
         assert found.get(entry) == "cuda", (entry, found.get(entry))
     assert not [k for k, v in found.items() if str(v) == "cpu"], found
 
