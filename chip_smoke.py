@@ -130,7 +130,23 @@ It builds the port's kernels from the sources in this checkout and then:
      LPIPS-VGG at (8, 256, 256, 3) timed, against the CPU at batch 2, and
      the pixel CLI with local random LPIPS weights (its record holds
      lpips); (f) K2a, K2b, K2c against their plain versions at every DDPM
-     site shape at eps 1e-6, both dtypes, K2c's picked design timed.
+     site shape at eps 1e-6, both dtypes, K2c's picked design timed;
+ 12. chains over processes (nshmc_tpu_torch/parallel/), two ranks of one
+     gloo group (the NSHMC_* contract on localhost) sharing the one card,
+     both on cuda:0: (a) the main path's flagship problem, 8 chains as 2
+     ranks x 4 through the sharded runner (`chip_smoke.py --mesh-rank DIR`
+     is one rank), one attempt with the even chains accepting, against
+     the unsharded 8-chain run in this process: decisions equal where
+     clear of the bf16 noise, moved states within DISPLACEMENT_TOL of their
+     displacement (phase 9(d)'s hold), each rank's K1, K2a, K2b and K2c
+     counts set to 0 just before and read just after (each equal to the
+     unsharded run's, no plain version), evals/s and peak memory of each rank and of the
+     unsharded run; (b) the CLI, --algo hmc --mesh 2 --chains 8 on
+     configs/ffhq.yaml, one image: one metrics row, one summary line (the
+     primary's), the artifacts once; (c) --algo ddnm over two images, data
+     sharded: rank i takes image i, both rows gathered in idx order; (d)
+     --algo hmc_latent --mesh 2 --chains 8 on configs/ffhq_latent.yaml.
+     Two ranks on one card measure oversubscription, not scaling.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
@@ -2539,12 +2555,290 @@ def phase_ddpm_kernels(torch, gn, kc):
     return out, picks
 
 
+# ---- 12. chains over processes: --mesh and multi-process runs -----------------------------------
+MESH = 2  # ranks of one gloo group, both on cuda:0: the one card is shared, not split
+MESH_KERNELS = ("attention", "gn_stats", "gn_apply", "gn_backward", "gn_backward_twopass")
+
+
+def kernel_counters(torch):
+    """name -> the object whose `.launches` counts each kernel where it
+    launches (K1's two kernels, K2a, K2a's old Triton chain, K2b, K2c's two
+    designs, P1-P4)."""
+    from nshmc_tpu_torch.ops import attention as attn
+    from nshmc_tpu_torch.ops import groupnorm as gn
+    from nshmc_tpu_torch.ops import stream_probe as sp
+    from nshmc_tpu_torch.scripts import groupnorm_stats_variants as stats_variants
+
+    return {"attention": attn.KERNEL_LAUNCHES[torch.bfloat16],
+            "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.group_stats,
+            "gn_stats_triton_chain": stats_variants.triton_chain,
+            "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
+            "gn_backward_twopass": gn.launch_twopass,
+            **{f.__name__: f for f in sp.KERNELS}}
+
+
+def launch_ranks(argv, label, timeout=600):
+    """`python3 argv...` as MESH ranks of one gloo group on localhost (the
+    NSHMC_* contract, parallel/multihost.py::launch_local), from the
+    checkout's root; returns their outputs. A rank that fails, or ranks
+    that outlast `timeout` s together, fail the run; every rank is killed
+    on the way out."""
+    from nshmc_tpu_torch.parallel import multihost as mh
+
+    try:
+        return mh.launch_local(argv, MESH, timeout, cwd=ROOT)
+    except RuntimeError as e:
+        fail(f"{label}: {str(e)[-4000:]}")
+
+
+def mesh_problem(torch, np, dev):
+    """Phase 12(a)'s problem, built alike by the parent and by each rank:
+    the main path's flagship (bf16, random weights from SEED, 3-step DDIM,
+    92% random inpainting), y0's noise and the 8 chains' x_T drawn on the
+    host as the CLI draws them, the engine's generator, one MH attempt at
+    L = 20."""
+    import types
+    import yaml
+    from nshmc_tpu_torch import schedules as sched_mod
+    from nshmc_tpu_torch.cli import host_randn, image_generators
+    from nshmc_tpu_torch.hmc import engine
+    from nshmc_tpu_torch.models import unet
+    from nshmc_tpu_torch.operators import build_operator
+    from nshmc_tpu_torch.sampling import ddim
+
+    with open(os.path.join(ROOT, "configs", "ffhq.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    mcfg = unet.UNetConfig.from_model_yaml(**cfg["model"])
+    d, c = cfg["data"]["image_size"], cfg["data"]["channels"]
+    model = unet.UNetModel(mcfg, dtype=torch.bfloat16)
+    model.load_state_dict(random_state_dict(torch, model, SEED))
+    model = model.to(dev).eval()
+    sched = sched_mod.DiffusionSchedule.create(
+        cfg["diffusion"]["beta_schedule"], cfg["diffusion"]["beta_start"],
+        cfg["diffusion"]["beta_end"], cfg["diffusion"]["num_diffusion_timesteps"], device=dev)
+    op = build_operator("inpaint_random", c, d, np.random.default_rng(SEED), device=dev)
+    host, gen = image_generators(SEED + 12, dev)
+    x_orig = 2 * torch.from_numpy(synthetic_image(np, d, SEED)).to(dev)[None] - 1
+    with torch.no_grad():
+        y0 = op.H_img(x_orig)
+    y0 = y0 + 0.1 * host_randn(y0.shape, host, dev)
+    return types.SimpleNamespace(
+        model=model, decode=ddim.make_decoder(model, sched, sched_mod.DDIMSequence.create(1000, 3)),
+        op=op, y0=y0, x=host_randn((CHAINS, d, d, c), host, dev), gen=gen,
+        hcfg=engine.HMCConfig(sigma_0=0.1, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
+                              max_attempts=1))
+
+
+def mesh_run(torch, engine, prob, runner=None):
+    """One attempt of the 8 chains, the even ones accepting every finite
+    proposal (the same global draws in every process): unsharded, or through
+    the sharded `runner`. Returns (the end state of all 8 chains, whether
+    each of this process's chains decided clear of float noise)."""
+    log = []
+    draws = accepting_draws(engine, [prob.gen], prob.x, 1, EVEN)
+    state = engine.init_chains(prob.hcfg, CHAINS, prob.x.shape[1:], prob.x.device, x=prob.x)
+    with swapped(recording_propose(engine, log)):
+        if runner is None:
+            out = engine.run_hmc(engine.make_pixel_loss_fn(prob.decode, prob.op, prob.y0[0]),
+                                 prob.hcfg, state, prob.gen, draws=draws)
+        else:
+            out = runner(prob.decode, prob.op, prob.y0[0], state, prob.gen, draws=draws)
+    return out, clear_decisions(torch, log)
+
+
+def mesh_rank(out_dir):
+    """One rank of phase 12(a) (`chip_smoke.py --mesh-rank OUT_DIR`, under
+    the NSHMC_* contract): its 4 of the 8 chains through the sharded runner
+    on cuda:0, every kernel count set to 0 just before and read just after,
+    one warm-up evaluation first; saves the gathered state, its decisions,
+    launches, time and peak memory to OUT_DIR/rank{i}.pt."""
+    import numpy as np
+    import torch
+
+    check(torch.cuda.is_available(), "phase 12(a) rank: no CUDA")
+    sys.path.insert(0, ROOT)
+    from nshmc_tpu_torch.hmc import engine
+    from nshmc_tpu_torch.ops import groupnorm as gn
+    from nshmc_tpu_torch.parallel import chains
+    from nshmc_tpu_torch.parallel import multihost as mh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mh.maybe_initialize()
+    mesh = chains.chain_mesh(MESH, "cuda:0")
+    torch.cuda.set_device(mesh.device)
+    prob = mesh_problem(torch, np, mesh.device)
+    per = CHAINS // MESH
+    engine.value_and_grad(engine.make_pixel_loss_fn(prob.decode, prob.op, prob.y0[0]),
+                          prob.x[mesh.rank * per:(mesh.rank + 1) * per])  # warm-up
+    runner = chains.make_sharded_hmc(prob.hcfg, mesh, engine.make_pixel_loss_fn)
+    counters = kernel_counters(torch)
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        out, clear = mesh_run(torch, engine, prob, runner)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rec = dict(rank=mesh.rank, device=str(mesh.device), s=dt, evals=prob.hcfg.n_leapfrog + 1,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, plain=dict(plain),
+               launches={k: f.launches for k, f in counters.items()},
+               state={k: v.cpu() for k, v in vars(out).items()}, clear=clear.cpu())
+    torch.save(rec, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    mh.shutdown()
+    print(f"phase 12(a) rank {mesh.rank} of {mesh.size} on {mesh.device}: done", flush=True)
+
+
+def phase_mesh_library(torch, np, engine, counters, card):
+    """(a) 8 flagship chains as 2 ranks x 4 through the sharded runner (both
+    ranks on cuda:0) against the unsharded 8-chain run in this process, one
+    attempt, the even chains accepting: decisions equal where clear of the
+    bf16 noise, the moved states within DISPLACEMENT_TOL of their
+    displacement (phase 9(d)'s hold: cuDNN may pick other algorithms at
+    batch 4 than at 8); K1, K2a, K2b and K2c launched in each rank as often
+    as in the unsharded run, no plain version. Returns the record."""
+    dev = torch.device("cuda")
+    prob = mesh_problem(torch, np, dev)
+    evals = prob.hcfg.n_leapfrog + 1
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with plain_calls() as plain:
+        ref, clear_ref = mesh_run(torch, engine, prob)
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    unsharded = dict(s=dt, evals_per_s=evals / dt,
+                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    launches = {k: f.launches for k, f in counters.items()}
+    check(not any(plain.values()) and all(launches[k] > 0 for k in MESH_KERNELS[:3])
+          and launches["gn_backward"] + launches["gn_backward_twopass"] > 0,
+          f"phase 12(a) unsharded run: launches {launches}, plain calls {plain}")
+    x_start = prob.x.clone()
+    del prob
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        launch_ranks([os.path.abspath(__file__), "--mesh-rank", tmp], "phase 12(a)")
+        wall = time.time() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(MESH)]
+    for r in ranks:
+        lc = r["launches"]
+        check(r["device"] == "cuda:0" and not any(r["plain"].values()),
+              f"phase 12(a) rank {r['rank']}: device {r['device']}, plain calls {r['plain']}")
+        check(all(lc[k] == launches[k] for k in MESH_KERNELS),
+              f"phase 12(a) rank {r['rank']}: K1, K2a, K2b and K2c must launch as often as in "
+              f"the unsharded run ({ {k: launches[k] for k in MESH_KERNELS} }): {lc}")
+        for k, v in lc.items():
+            if k not in MESH_KERNELS:
+                check(v == 0, f"phase 12(a) rank {r['rank']}: kernel {k} launched {v} times")
+        for k, v in r["state"].items():
+            check(torch.equal(v, ranks[0]["state"][k]),
+                  f"phase 12(a): the ranks' gathered {k} differ")
+    import types
+    sharded = types.SimpleNamespace(**{k: v.to(dev) for k, v in ranks[0]["state"].items()})
+    clear = clear_ref & torch.cat([r["clear"] for r in ranks]).to(dev)
+    worst, n_clear = compare_chains(torch, "phase 12(a)", sharded, ref, x_start, clear)
+    per_rank = [dict(device=r["device"], s=r["s"], evals_per_s=r["evals"] / r["s"],
+                     peak_memory_gb=r["peak_memory_gb"],
+                     launches={k: v for k, v in r["launches"].items() if v}) for r in ranks]
+    for r, pr in zip(ranks, per_rank):
+        print(f"phase 12(a) rank {r['rank']} of {MESH} on {pr['device']}: 4 chains, one attempt "
+              f"of {r['evals']} energy+grad evals in {pr['s']:.3f} s (gather included), "
+              f"{pr['evals_per_s']:.3f} a second, peak memory {pr['peak_memory_gb']:.2f} GB; "
+              f"launches {pr['launches']}; plain versions 0; {card}")
+    rate = sum(pr["evals_per_s"] for pr in per_rank) * (CHAINS // MESH)  # chain-evaluations/s
+    unsharded["launches"] = {k: v for k, v in launches.items() if v}
+    print(f"phase 12(a) unsharded, 8 chains in this process: {evals} evals in "
+          f"{unsharded['s']:.3f} s, {unsharded['evals_per_s']:.3f} a second "
+          f"({CHAINS * unsharded['evals_per_s']:.2f} chain-evaluations/s; the ranks together "
+          f"{rate:.2f}), peak memory {unsharded['peak_memory_gb']:.2f} GB; {card}")
+    print(f"phase 12(a) sharded (2 ranks x 4 chains, one card) against unsharded (8 chains): "
+          f"{n_clear}, equal; moved states within {worst:.3e} of their displacement "
+          f"(tolerance {DISPLACEMENT_TOL}); accepted {ref.accepted.tolist()}; the ranks took "
+          f"{wall:.1f} s of wall time from launch to exit")
+    return {"ranks": per_rank, "unsharded": unsharded, "worst_displacement_ratio": worst,
+            "compared": n_clear, "ranks_chain_evals_per_s": rate,
+            "launch_to_exit_s": wall, "card": card}
+
+
+def mesh_cli(np, label, argv, n_images):
+    """The port's CLI as MESH ranks on cuda:0 over `n_images` synthetic
+    256^2 images (the first phase 5's): returns (the ranks' outputs, the
+    metrics rows, the output folder's files, seconds)."""
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        os.makedirs(data)
+        for i in range(n_images):
+            Image.fromarray((synthetic_image(np, 256, SEED + 3 + i) * 255).astype(np.uint8)).save(
+                os.path.join(data, "face.png" if i == 0 else f"face{i}.png"))
+        out = os.path.join(tmp, "out")
+        t0 = time.time()
+        outs = launch_ranks(["-m", "nshmc_tpu_torch.cli", "--device", "cuda:0", *argv,
+                             "--data_path", data, "-i", out], label)
+        dt = time.time() - t0
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f.read().splitlines()]
+        files = sorted(os.listdir(out))
+    for rank, o in enumerate(outs):
+        check(f"rank {rank} of {MESH}: device cuda:0" in o, f"{label}: rank {rank}'s device:\n{o}")
+    summaries = [[ln for ln in o.splitlines() if ln.startswith('{"summary"')] for o in outs]
+    check([len(s) for s in summaries] == [1] + [0] * (MESH - 1),
+          f"{label}: summary lines by rank {summaries}")
+    summary = json.loads(summaries[0][0])["summary"]
+    check(math.isfinite(summary.get("psnr", float("nan"))), f"{label}: summary {summary}")
+    check([r["idx"] for r in rows] == list(range(n_images))
+          and all(math.isfinite(r["psnr"]) for r in rows), f"{label}: metrics rows {rows}")
+    print(f"{label} in {dt:.1f} s: rows {[(r['idx'], r['file']) for r in rows]}, files {files}; "
+          f"{summaries[0][0]}")
+    return outs, rows, files, dt
+
+
+def phase_mesh_clis(np):
+    """(b) --algo hmc --mesh 2 --chains 8 on configs/ffhq.yaml, one image:
+    the chains shared out, the primary alone writing the artifacts, the
+    metrics row and the summary; (c) --algo ddnm over two images: rank i
+    takes image i and saves it, the primary writes both rows in idx order;
+    (d) --algo hmc_latent --mesh 2 --chains 8 on configs/ffhq_latent.yaml
+    (f32). Returns each run's seconds."""
+    ffhq = os.path.join(ROOT, "configs", "ffhq.yaml")
+    one = ["0.png", "metrics.jsonl", "orig_0.png", "std_dev_map_0.png", "y0_0.png"]
+    # sigma_0 0.5: the post-anneal likelihood at sigma_y 1.0, so the L = 2 proposals of
+    # the random-weight prior are accepted within a few attempts
+    outs, _, files, t_b = mesh_cli(np, "phase 12(b) CLI --algo hmc --mesh 2 --chains 8", [
+        "--config", ffhq, "--algo", "hmc", "--deg", "inpaint_random", "--chains", str(CHAINS),
+        "--mesh", str(MESH), "--tau", "0.1", "--epsilon", "0.05", "--hmc_epochs", "1",
+        "--hmc_sampling", "1", "--sigma_0", "0.5"], 1)
+    check(files == one, f"phase 12(b): files {files}")
+    check("chains sharded over 2 processes" in outs[0], "phase 12(b): no sharded run")
+    outs, _, files, t_c = mesh_cli(np, "phase 12(c) CLI --algo ddnm, 2 images", [
+        "--config", ffhq, "--algo", "ddnm", "--deg", "inpaint_random", "--subset_end", "2"], 2)
+    check(files == sorted(one[:3] + ["1.png", "orig_1.png", "y0_0.png", "y0_1.png"]),
+          f"phase 12(c): files {files}")
+    for rank, o in enumerate(outs):
+        check(f"[{rank}] " in o and f"[{1 - rank}] " not in o,
+              f"phase 12(c): rank {rank} did not take image {rank} alone")
+    outs, _, files, t_d = mesh_cli(np, "phase 12(d) CLI --algo hmc_latent --mesh 2 --chains 8", [
+        "--config", LATENT_CFG, "--algo", "hmc_latent", "--deg", "inpaint_random",
+        "--chains", str(CHAINS), "--mesh", str(MESH), "--tau", "0.1", "--epsilon", "0.05",
+        "--latent_epochs", "1", "--latent_sampling", "1"], 1)
+    check(set(one) - {"std_dev_map_0.png"} <= set(files), f"phase 12(d): files {files}")
+    return {"cli_hmc_mesh_s": t_b, "cli_ddnm_data_sharded_s": t_c, "cli_hmc_latent_mesh_s": t_d}
+
+
 def main():
     t_start = time.time()
     args = sys.argv[1:]
     trace_dir = None
     if args[:1] == ["--trace"] and len(args) == 2:
         trace_dir = args[1]
+    elif args[:1] == ["--mesh-rank"] and len(args) == 2:  # one rank of phase 12(a)
+        return mesh_rank(args[1])
     elif args:
         fail("usage: chip_smoke.py [--trace OUT_DIR]")
     try:
@@ -2643,12 +2937,7 @@ def main():
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     on_path = set(MAIN_PATH_KERNELS) | {BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]
                                         for shape in kc.FLAGSHIP_GN_SITES}
-    counters = {"attention": attn.KERNEL_LAUNCHES[torch.bfloat16],
-                "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.group_stats,
-                "gn_stats_triton_chain": stats_variants.triton_chain,
-                "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
-                "gn_backward_twopass": gn.launch_twopass,
-                **{f.__name__: f for f in sp.KERNELS}}
+    counters = kernel_counters(torch)
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
     base_gb = torch.cuda.memory_allocated() / 1e9
@@ -2998,6 +3287,13 @@ def main():
     ddpm_kernels, ddpm_picks = phase_ddpm_kernels(torch, gn, kc)
     print(f"phase 11 (the remaining models and utilities) took {time.time() - t0:.1f} s")
 
+    # ---- 12. chains over processes: --mesh and multi-process runs --------------------------------
+    t0 = time.time()
+    mesh = phase_mesh_library(torch, np, engine, counters, card)
+    mesh["clis"] = phase_mesh_clis(np)
+    print(f"phase 12 (chains over processes, {MESH} ranks on one card) took "
+          f"{time.time() - t0:.1f} s")
+
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
         if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
@@ -3042,7 +3338,10 @@ def main():
         kernels.append({"name": name, "route": route, "source": src, "replaces": replaces,
                         "launches": paths[own][name] if own else r_["launches"],
                         "path": own or "stream probe",
-                        "path_launches": {pth: counts[name] for pth, counts in paths.items()},
+                        "path_launches": {
+                            **{pth: counts[name] for pth, counts in paths.items()},
+                            "mesh": {f"rank {i}": r["launches"].get(name, 0)
+                                     for i, r in enumerate(mesh["ranks"])}},
                         "latent_shapes": [x for x in latent_kernels.get(key, [])
                                           if kdt in (None, x["dtype"])],
                         **({"flagship_shapes": attn_f32} if name == "attention_f32" else {}),
@@ -3086,7 +3385,7 @@ def main():
         "conditional_unet": {k: {f: v for f, v in r_.items() if f != "launches"}
                              for k, r_ in cond_runs.items()},
         "class_conditional": {f: v for f, v in class_run.items() if f != "launches"},
-        "lpips": lpips_run, "ddpm_k2c_picks": ddpm_picks}))
+        "lpips": lpips_run, "ddpm_k2c_picks": ddpm_picks, "mesh": mesh}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -17,9 +17,18 @@ per-accept hmc_{e}.png and hmc_trail_{idx}.json, with `--diagnostics`
 diagnostics_{idx}.json. `--checkpoint-dir` snapshots and resumes each
 image's chains. Runs on CUDA unless `--device cpu` is given.
 
+Several processes (parallel/multihost.py: NSHMC_DIST=1 with torchrun or the
+NSHMC_* variables; one device a process): `hmc` / `hmc_latent` with
+`--mesh N` > 1 shard each image's chains over the N processes
+(parallel/chains.py), the primary writing the artifacts; every other run
+(`--mesh` <= 1, or an algorithm that ignores `--mesh`) is data-sharded:
+process i takes images i::P and writes its own. The primary puts the
+metrics rows in idx order and prints the summary of every process's.
+
 Run:  python -m nshmc_tpu_torch.cli --algo hmc --deg inpaint_random \
           --config configs/ffhq.yaml -i out/
       python -m nshmc_tpu_torch.cli --algo hmc_latent --config configs/ffhq_latent.yaml
+      NSHMC_DIST=1 torchrun --nproc_per_node 2 -m nshmc_tpu_torch.cli --mesh 2 --chains 8 ...
 """
 from __future__ import annotations
 
@@ -80,7 +89,10 @@ def get_parser():
     p.add_argument("--image_batch", type=int, default=1,
                    help="run HMC on N images at once: N x chains as one batch")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard chains over N devices (not ported: ROADMAP.md Queue 1 item 2)")
+                   help="hmc, hmc_latent: shard the chains over N processes, one a device "
+                        "(parallel/multihost.py's NSHMC_* contract or torchrun), all of "
+                        "them on each image; other algorithms ignore it, and several "
+                        "processes without a chain mesh split the images (i::P)")
     p.add_argument("--ckpt", default="",
                    help="reference checkpoint (random init if absent)")
     p.add_argument("--checkpoint-dir", default="",
@@ -122,23 +134,78 @@ PIXEL_BASELINES = ("ddnm", "ddrm", "dps", "pigdm", "dmps", "reddiff", "diffpir",
 PIXEL_ALGOS = ("hmc", "hmc_cond", "dmplug_adam", "dmplug_lbfgs") + PIXEL_BASELINES
 
 
-def _check_ported(opt):
+SHARDED_ALGOS = ("hmc", "hmc_latent")  # --mesh > 1 shards their chains; the rest ignore it
+
+
+def _check_flags(opt):
+    """Raise, before any output, on an unknown algorithm, on --mesh > 1 with
+    hmc / hmc_latent where the process group is not --mesh processes, on
+    chains that do not split over the mesh, and on --mesh > 1 with
+    --image_batch > 1 (the image batch is one run of its own)."""
+    from .parallel import multihost as mh
+    from .parallel.chains import LAUNCH_HINT
+
     if opt.algo not in PIXEL_ALGOS + LATENT_ALGOS:
         raise NotImplementedError(
             f"--algo {opt.algo} is not an algorithm of nshmc_tpu_torch; they are "
             f"{', '.join(PIXEL_ALGOS + LATENT_ALGOS)} (ROADMAP.md, Queue 1)")
-    if opt.mesh > 1:
-        raise NotImplementedError(
-            "--mesh is not ported to nshmc_tpu_torch yet: sharding chains over devices is "
-            "ROADMAP.md, Queue 1 item 2")
+    if opt.mesh > 1 and opt.algo in SHARDED_ALGOS:
+        if mh.process_count() != opt.mesh:
+            raise ValueError(f"--mesh {opt.mesh} shards the chains over {opt.mesh} processes, "
+                             f"one a device, and this run has {mh.process_count()}: "
+                             + LAUNCH_HINT.format(n=opt.mesh))
+        if opt.chains % opt.mesh:
+            raise ValueError(f"--chains {opt.chains} is not a multiple of --mesh {opt.mesh}")
+        if opt.algo == "hmc" and opt.image_batch > 1:
+            raise ValueError(f"--image_batch {opt.image_batch} does not combine with --mesh "
+                             f"{opt.mesh}: shard the chains of one image at a time, or run "
+                             "the image batches data-sharded (--mesh <= 1)")
 
 
 def _device(name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
+    """The run's device: `name`, or with a process group this rank's card
+    (parallel/multihost.py::rank_device), made the current one."""
+    from .parallel import multihost as mh
+
+    if torch.device(name).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda, but CUDA is not available on this host; "
                            "pass --device cpu to run on the CPU")
+    device = mh.rank_device(name)
+    if mh.process_count() > 1:
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        print(f"rank {mh.process_index()} of {mh.process_count()}: device {device}")
     return device
+
+
+def work_items(opt, files):
+    """This process's (idx, path) pairs and whether it writes their
+    artifacts (nshmc_tpu/cli.py:263-278). One process: every image. Several,
+    with --mesh > 1 and hmc / hmc_latent: every image on every process (the
+    run shares its chains out), the primary writing; else (--mesh <= 1, or
+    an algorithm that ignores --mesh) process i takes images i::P and
+    writes its own."""
+    from .parallel import multihost as mh
+
+    items = list(enumerate(files))
+    if mh.process_count() == 1:
+        return items, True
+    if opt.mesh > 1 and opt.algo in SHARDED_ALGOS:
+        return items, mh.is_primary()
+    return mh.shard_files(items), True
+
+
+def print_ignored_by_mesh(opt):
+    """--mesh > 1 runs the sharded driver first, as the JAX CLI's branch
+    order does; say which flags it leaves out."""
+    ignored = [flag for flag, on in (
+        ("--checkpoint-dir", opt.checkpoint_dir), ("--verbose", opt.verbose),
+        ("--save_epochs", opt.save_epochs), ("--adapt da", opt.adapt == "da"),
+        ("--driver observed", opt.driver == "observed"), ("--chain_chunk", opt.chain_chunk))
+        if on]
+    if ignored:
+        print(f"  {', '.join(ignored)} ignored: --mesh {opt.mesh} runs the sharded chains "
+              f"(as the JAX CLI does)")
 
 
 def load_config(path):
@@ -164,19 +231,20 @@ def image_generators(seed: int, device) -> tuple:
     return host, host if device.type == "cpu" else torch.Generator(device=device).manual_seed(seed)
 
 
-def observe(opt, operator, path, idx, d, sigma_0, host, device):
+def observe(opt, operator, path, idx, d, sigma_0, host, device, own=True):
     """Load image `idx`, synthesize y0 = H(x) + sigma_0 * noise with the
-    noise from the image's host generator and save y0_{idx}.png and
-    orig_{idx}.png. Returns (x01 (d, d, 3) numpy, y0 (1, d_y))."""
+    noise from the image's host generator and, if `own`, save y0_{idx}.png
+    and orig_{idx}.png. Returns (x01 (d, d, 3) numpy, y0 (1, d_y))."""
     from .utils import images as im
 
     x01 = im.load_image(path, d)
     x_orig = im.data_transform(torch.from_numpy(x01).to(device))[None]
     y0 = operator.H_img(x_orig)
     y0 = y0 + sigma_0 * host_randn(y0.shape, host, device)
-    im.save_image(im.inverse_data_transform(operator.H_pinv_img(y0)[0]),
-                  os.path.join(opt.image_folder, f"y0_{idx}.png"))
-    im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
+    if own:
+        im.save_image(im.inverse_data_transform(operator.H_pinv_img(y0)[0]),
+                      os.path.join(opt.image_folder, f"y0_{idx}.png"))
+        im.save_image(x01, os.path.join(opt.image_folder, f"orig_{idx}.png"))
     return x01, y0
 
 
@@ -191,17 +259,19 @@ def load_lpips(device):
     return fn
 
 
-def record(opt, idx, path, samples01, x01, dt, stats, lpips_fn=None):
-    """Write {idx}.png (the last sample), std_dev_map_{idx}.png (several
-    samples) and the image's metrics.jsonl line; add PSNR and SSIM of every
-    sample (S, H, W, C) in [0, 1] to `stats`, and LPIPS, computed on the
-    CLI's device, where `lpips_fn` is given."""
+def record(opt, idx, path, samples01, x01, dt, stats, lpips_fn=None, own=True):
+    """If `own`, write {idx}.png (the last sample), std_dev_map_{idx}.png
+    (several samples) and append the image's metrics.jsonl row; add PSNR
+    and SSIM of every sample (S, H, W, C) in [0, 1] to `stats`, and LPIPS,
+    computed on the CLI's device, where `lpips_fn` is given."""
     from .utils import images as im
     from .utils.metrics import psnr, ssim
 
-    im.save_image(samples01[-1], os.path.join(opt.image_folder, f"{idx}.png"))
-    if samples01.shape[0] > 1:
-        im.save_std_dev_map(samples01, os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
+    if own:
+        im.save_image(samples01[-1], os.path.join(opt.image_folder, f"{idx}.png"))
+        if samples01.shape[0] > 1:
+            im.save_std_dev_map(samples01,
+                                os.path.join(opt.image_folder, f"std_dev_map_{idx}.png"))
     origs = torch.from_numpy(x01)[None].expand_as(samples01)
     vals = {"psnr": psnr(samples01, origs).numpy(), "ssim": ssim(samples01, origs).numpy()}
     if lpips_fn is not None:
@@ -211,11 +281,38 @@ def record(opt, idx, path, samples01, x01, dt, stats, lpips_fn=None):
     rec = {"idx": idx, "file": os.path.basename(path), "algo": opt.algo,
            "deg": opt.deg, "wall_s": round(dt, 2),
            **{k: float(np.mean(v)) for k, v in vals.items()}}
-    with open(os.path.join(opt.image_folder, "metrics.jsonl"), "a") as f:
-        f.write(json.dumps(rec) + "\n")
+    if own:
+        with open(os.path.join(opt.image_folder, "metrics.jsonl"), "a") as f:
+            f.write(json.dumps(rec) + "\n")
     print(f"[{idx}] {os.path.basename(path)}: "
           + ", ".join(f"{k}={np.mean(v):.4f}" for k, v in vals.items())
           + f"  ({dt:.1f}s)")
+
+
+def finish(opt, stats, n_rows):
+    """Print (the primary) and return the run's summary: the running stats
+    of every process that wrote `n_rows` > 0 metrics rows, merged (one
+    process: its own). With several processes the primary then puts the
+    run's rows, the last of metrics.jsonl, in idx order
+    (nshmc_tpu/cli.py:505-533)."""
+    from .parallel import multihost as mh
+    from .utils.metrics import RunningStats
+
+    parts = mh.gather_records([(stats, n_rows)] if n_rows else [])
+    summary = RunningStats.merged([p for p, _ in parts]).summary()
+    if not mh.is_primary():
+        return summary
+    n = sum(k for _, k in parts)
+    if mh.process_count() > 1 and n:
+        path = os.path.join(opt.image_folder, "metrics.jsonl")
+        with open(path) as f:
+            lines = f.read().splitlines()
+        head, run = lines[:len(lines) - n], lines[len(lines) - n:]
+        run.sort(key=lambda ln: json.loads(ln)["idx"])
+        with open(path, "w") as f:
+            f.writelines(ln + "\n" for ln in head + run)
+    print(json.dumps({"summary": summary}))
+    return summary
 
 
 def build_pixel_model(cfg, opt, device):
@@ -243,7 +340,7 @@ def run_pixel(opt):
     from .utils import images as im
     from .utils.metrics import RunningStats
 
-    _check_ported(opt)
+    _check_flags(opt)
     device = _device(opt.device)
     cfg = load_config(opt.config)
     d = cfg["data"]["image_size"]
@@ -263,36 +360,35 @@ def run_pixel(opt):
                         epochs=opt.hmc_epochs, sampling=opt.hmc_sampling)
 
     files = im.list_dataset(opt.data_path or cfg["data"]["path"])
-    files = files[opt.subset_start:opt.subset_end]
+    items, own = work_items(opt, files[opt.subset_start:opt.subset_end])
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
     lpips_fn = load_lpips(device)
     if opt.algo == "hmc" and opt.image_batch > 1:
-        return _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
-                                      device, stats, lpips_fn)
-    run = {"hmc": _pixel_hmc, "hmc_cond": _pixel_hmc_cond}.get(opt.algo, _pixel_dmplug)
+        return _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, items, own, d, c,
+                                      sigma_0, device, stats, lpips_fn)
+    run = {"hmc": functools.partial(_pixel_hmc, own=own),
+           "hmc_cond": _pixel_hmc_cond}.get(opt.algo, _pixel_dmplug)
     if opt.algo in PIXEL_BASELINES:
         run = functools.partial(_pixel_baseline, model=model, sched=sched, seq=seq)
-    for idx, path in enumerate(files):
+    for idx, path in items:
         host, gen = image_generators(opt.seed + idx, device)
-        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
+        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device, own)
         t0 = time.time()
         x_t = host_randn((opt.chains if opt.algo.startswith("hmc") else 1, d, d, c), host,
                          device)
         samples = run(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen)
         samples01 = im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu()
-        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn)
-
-    summary = stats.summary()
-    print(json.dumps({"summary": summary}))
-    return summary
+        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn, own)
+    return finish(opt, stats, len(items) if own else 0)
 
 
-def _pixel_hmc(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
-    """--algo hmc on one image (nshmc_tpu/cli.py:317-436): the observed
-    driver's progress, trail and snapshots where a flag asks for them, else
-    dual averaging with --adapt da, else the plain run; then the
-    diagnostics. Returns the kept samples."""
+def _pixel_hmc(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen, own=True):
+    """--algo hmc on one image (nshmc_tpu/cli.py:317-436): with --mesh > 1
+    the chains sharded over the processes; else the observed driver's
+    progress, trail and snapshots where a flag asks for them, else dual
+    averaging with --adapt da, else the plain run; then the diagnostics
+    (written if `own`). Returns the kept samples."""
     from .hmc.engine import init_chains, make_pixel_loss_fn, run_hmc
     from .utils import images as im
     from .utils.metrics import psnr
@@ -300,7 +396,17 @@ def _pixel_hmc(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
     loss_fn = make_pixel_loss_fn(decode, operator, y0[0])
     states = init_chains(hmc_cfg, x_t.shape[0], x_t.shape[1:], x_t.device, x=x_t)
     waves = dict(attempts_per_round=opt.attempts_per_round, chain_chunk=opt.chain_chunk)
-    if opt.checkpoint_dir or opt.verbose or opt.save_epochs or opt.driver == "observed":
+    if opt.mesh > 1:
+        from .parallel import multihost as mh
+        from .parallel.chains import acceptance_stats, chain_mesh, make_sharded_hmc
+
+        print_ignored_by_mesh(opt)
+        runner = make_sharded_hmc(hmc_cfg, chain_mesh(opt.mesh, x_t.device), make_pixel_loss_fn)
+        out = runner(decode, operator, y0[0], states, gen)
+        if mh.is_primary():
+            print(f"  chains sharded over {opt.mesh} processes: "
+                  f"{json.dumps(acceptance_stats(out, hmc_cfg))}")
+    elif opt.checkpoint_dir or opt.verbose or opt.save_epochs or opt.driver == "observed":
         if opt.adapt == "da":
             print("  --adapt da ignored: --checkpoint-dir, --verbose, --save_epochs or "
                   "--driver observed runs the observed driver (as the JAX CLI does)")
@@ -343,8 +449,9 @@ def _pixel_hmc(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
 
         diag = summarize_chains(out.samples)
         print(f"  diagnostics: {format_summary(diag)}")
-        with open(os.path.join(opt.image_folder, f"diagnostics_{idx}.json"), "w") as f:
-            json.dump(diag, f)
+        if own:
+            with open(os.path.join(opt.image_folder, f"diagnostics_{idx}.json"), "w") as f:
+                json.dump(diag, f)
     return out.samples
 
 
@@ -392,20 +499,22 @@ def _pixel_dmplug(opt, idx, x01, y0, x_t, decode, operator, hmc_cfg, gen):
                                max_inner=opt.lbfgs_inner)[1]
 
 
-def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0, device,
+def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, items, own, d, c, sigma_0, device,
                            stats, lpips_fn):
     """--image_batch N: N images x chains as one batch (run_hmc_multi,
-    nshmc_tpu/cli.py:540-616). Each image draws y0's noise, its initial
-    state and its momenta from its own generators, as it would alone."""
+    nshmc_tpu/cli.py:540-616), over this process's (idx, path) `items`,
+    their artifacts written if `own`. Each image draws y0's noise, its
+    initial state and its momenta from its own generators, as it would
+    alone."""
     from .hmc.engine import init_chains, make_pixel_loss_fn, run_hmc_multi
     from .utils import images as im
 
-    for start in range(0, len(files), opt.image_batch):
-        batch = list(enumerate(files[start:start + opt.image_batch], start))
+    for start in range(0, len(items), opt.image_batch):
+        batch = items[start:start + opt.image_batch]
         xs, y0s, gens, origs = [], [], [], []
         for idx, path in batch:
             host, gen = image_generators(opt.seed + idx, device)
-            x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
+            x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device, own)
             xs.append(host_randn((opt.chains, d, d, c), host, device))
             y0s.append(y0)
             gens.append(gen)
@@ -419,19 +528,23 @@ def _run_pixel_hmc_batched(opt, decode, operator, hmc_cfg, files, d, c, sigma_0,
         for bi, (idx, path) in enumerate(batch):
             samples = out.samples[bi * opt.chains:(bi + 1) * opt.chains]
             record(opt, idx, path, im.inverse_data_transform(samples.reshape(-1, d, d, c)).cpu(),
-                   origs[bi], dt, stats, lpips_fn)
-    summary = stats.summary()
-    print(json.dumps({"summary": summary}))
-    return summary
+                   origs[bi], dt, stats, lpips_fn, own)
+    return finish(opt, stats, len(items) if own else 0)
 
 
 def main(argv=None):
+    from .parallel import multihost
+
     opt = get_parser().parse_args(argv)
+    multihost.maybe_initialize()  # env-gated (NSHMC_DIST=1) process group
     if opt.algo in LATENT_ALGOS:
         from .cli_latent import run_latent
 
-        return run_latent(opt)
-    return run_pixel(opt)
+        summary = run_latent(opt)
+    else:
+        summary = run_pixel(opt)
+    multihost.shutdown()
+    return summary
 
 
 if __name__ == "__main__":

@@ -6,8 +6,9 @@ Builds the LDM (latent U-Net + VQ-f4 first stage, f32, random weights from
 seed 0 unless the config's checkpoint exists) and samples z_T at the latent
 shape. `hmc_latent` runs latent noise-space HMC with the chains as one batch
 (or in waves, `--chain_chunk`; snapshots and resume under
-`--checkpoint-dir`) and decodes the kept z0 latents (or, where no chain kept
-one, the final chain states through the DDIM ladder); `resample` runs
+`--checkpoint-dir`; sharded over the processes with `--mesh` > 1) and
+decodes the kept z0 latents (or, where no chain kept one, the final chain
+states through the DDIM ladder); `resample` runs
 ReSample over the DDIM ladder with the eps-net differentiated, and
 `resample_original` the original sampler (max(--timesteps, 10) DDIM steps,
 eps-net stop-grad), each from one z_T, its final latent decoded. Each writes
@@ -17,7 +18,6 @@ Run:  python -m nshmc_tpu_torch.cli --algo hmc_latent --config configs/ffhq_late
 """
 from __future__ import annotations
 
-import json
 import os
 import time
 
@@ -75,8 +75,8 @@ def build_latent_model(cfg, opt, device):
 
 
 def run_latent(opt):
-    from .cli import (_check_ported, _device, host_randn, image_generators, load_config,
-                      load_lpips, observe, record)
+    from .cli import (_check_flags, _device, finish, host_randn, image_generators, load_config,
+                      load_lpips, observe, print_ignored_by_mesh, record, work_items)
     from .hmc.latent import (LatentHMCConfig, init_latent_chains, make_latent_loss_fn,
                              run_latent_hmc)
     from .operators import build_operator
@@ -85,7 +85,7 @@ def run_latent(opt):
     from .utils import images as im
     from .utils.metrics import RunningStats
 
-    _check_ported(opt)
+    _check_flags(opt)
     device = _device(opt.device)
     cfg = load_config(opt.config)
     d, c = cfg["data"]["image_size"], cfg["data"]["channels"]
@@ -103,19 +103,19 @@ def run_latent(opt):
                               keep_samples=min(10, max(1, opt.latent_sampling)))
 
     files = im.list_dataset(opt.data_path or cfg["data"]["path"])
-    files = files[opt.subset_start:opt.subset_end]
+    items, own = work_items(opt, files[opt.subset_start:opt.subset_end])
     os.makedirs(opt.image_folder, exist_ok=True)
     stats = RunningStats()
     lpips_fn = load_lpips(device)
-    for idx, path in enumerate(files):
+    for idx, path in items:
         host, gen = image_generators(opt.seed + idx, device)
-        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device)
+        x01, y0 = observe(opt, operator, path, idx, d, sigma_0, host, device, own)
+        t0 = time.time()
         if opt.algo != "hmc_latent":
-            t0 = time.time()
             z = host_randn((1, *z_shape), host, device)
             samples = _latent_resample(opt, ldm, seq, operator, sigma_0, y0, z, gen)
             record(opt, idx, path, im.inverse_data_transform(samples).cpu(), x01,
-                   time.time() - t0, stats, lpips_fn)
+                   time.time() - t0, stats, lpips_fn, own)
             continue
 
         def report(states, rnd):
@@ -128,17 +128,25 @@ def run_latent(opt):
                   f"accept_ratio {ratio:.3f} sigma_y {sig:.3f} "
                   f"tau {float(states.tau[0]):.3f}")
 
-        t0 = time.time()
-        loss_fn = make_latent_loss_fn(decode_z, ldm.decode_first_stage, operator, y0[0])
         states = init_latent_chains(hmc_cfg, opt.chains, z_shape, device,
                                     z=host_randn((opt.chains, *z_shape), host, device))
-        # --save_epochs is accepted and unused, as in the JAX latent CLI
-        out = run_latent_hmc(loss_fn, hmc_cfg, states, gen,
-                             callback=report if opt.verbose else None,
-                             checkpoint_dir=(os.path.join(opt.checkpoint_dir, f"img{idx}")
-                                             if opt.checkpoint_dir else ""),
-                             attempts_per_round=opt.attempts_per_round,
-                             chain_chunk=opt.chain_chunk)
+        if opt.mesh > 1:  # the chains sharded over the processes
+            from .parallel.chains import chain_mesh, make_sharded_latent_hmc
+
+            print_ignored_by_mesh(opt)
+            runner = make_sharded_latent_hmc(
+                hmc_cfg, chain_mesh(opt.mesh, device),
+                lambda dec_z, op, y: make_latent_loss_fn(dec_z, ldm.decode_first_stage, op, y))
+            out = runner(decode_z, operator, y0[0], states, gen)
+        else:
+            # --save_epochs is accepted and unused, as in the JAX latent CLI
+            out = run_latent_hmc(make_latent_loss_fn(decode_z, ldm.decode_first_stage,
+                                                     operator, y0[0]),
+                                 hmc_cfg, states, gen, callback=report if opt.verbose else None,
+                                 checkpoint_dir=(os.path.join(opt.checkpoint_dir, f"img{idx}")
+                                                 if opt.checkpoint_dir else ""),
+                                 attempts_per_round=opt.attempts_per_round,
+                                 chain_chunk=opt.chain_chunk)
         z_samples = extract_kept_samples(out.samples.cpu().numpy(), out.n_kept.cpu().numpy())
         with torch.no_grad():
             if z_samples.shape[0] == 0:
@@ -149,11 +157,8 @@ def run_latent(opt):
             samples = torch.cat([ldm.decode_first_stage(z)
                                  for z in z0.split(max(1, opt.chains))])
         samples01 = im.inverse_data_transform(samples).cpu()
-        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn)
-
-    summary = stats.summary()
-    print(json.dumps({"summary": summary}))
-    return summary
+        record(opt, idx, path, samples01, x01, time.time() - t0, stats, lpips_fn, own)
+    return finish(opt, stats, len(items) if own else 0)
 
 
 def _latent_resample(opt, ldm, seq, operator, sigma_0, y0, z, gen):

@@ -64,6 +64,18 @@ class RunningStats:
             if v.size > 1:
                 self.stds[k] = self.stds.get(k, 0.0) + float(v.std(ddof=1))
 
+    @classmethod
+    def merged(cls, parts) -> "RunningStats":
+        """One accumulator over the images of every one of `parts` (the
+        processes' of a multi-process run)."""
+        out = cls()
+        for p in parts:
+            out.n += p.n
+            for mine, theirs in ((out.sums, p.sums), (out.stds, p.stds)):
+                for k, v in theirs.items():
+                    mine[k] = mine.get(k, 0.0) + v
+        return out
+
     def summary(self) -> dict:
         out = {}
         for k, s in self.sums.items():

@@ -17,6 +17,7 @@ from nshmc_tpu_torch.utils import images, metrics
 torch.set_num_threads(2)
 
 CFG = os.path.join(os.path.dirname(__file__), "..", "configs", "tiny_test.yaml")
+LATENT_CFG = os.path.join(os.path.dirname(__file__), "..", "configs", "tiny_latent_test.yaml")
 
 
 def _synthetic_dataset(root, size=16, n=1):
@@ -54,12 +55,26 @@ def test_cli_hmc_runs_and_writes_artifacts(tmp_path, capsys):
                                   ["--algo", "reddiff", "--mesh", "2"],
                                   ["--algo", "resample", "--mesh", "2"]])
 def test_cli_unported_flags_raise(tmp_path, flag):
-    """--mesh > 1 (ROADMAP.md, Queue 1 item 2) with any algorithm, the
-    baselines included since they are ported, and a name that is no
-    algorithm, raise before any output."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", *flag])
-    assert not (tmp_path / "o").exists()
+    """A name that is no algorithm raises before any output, and so does
+    --mesh > 1 with hmc in one process (its chains are sharded over --mesh
+    processes, one a device: the message names the launcher). A baseline
+    ignores --mesh in one process, as the JAX CLI does: its run equals the
+    run without --mesh."""
+    algo = flag[flag.index("--algo") + 1] if "--algo" in flag else "hmc"
+    out = tmp_path / "o"
+    if algo in ("hmc", "daps_x"):
+        err, match = ((ValueError, "NSHMC_DIST=1 torchrun --nproc_per_node 2") if algo == "hmc"
+                      else (NotImplementedError, "ROADMAP"))
+        with pytest.raises(err, match=match):
+            cli.main(["--config", CFG, "-i", str(out), "--device", "cpu", *flag])
+        assert not out.exists()
+        return
+    data = _synthetic_dataset(tmp_path / "data")
+    argv = ["--config", LATENT_CFG if algo == "resample" else CFG, "--data_path", str(data),
+            "--device", "cpu", "--no-bf16", "--timesteps", "1", *flag]
+    with_mesh = cli.main([*argv, "-i", str(tmp_path / "mesh")])
+    assert with_mesh == cli.main([*argv, "--mesh", "0", "-i", str(out)])
+    assert (tmp_path / "mesh" / "0.png").exists()
 
 
 def test_psnr_ssim_match_jax_metrics():

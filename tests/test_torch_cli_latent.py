@@ -1,7 +1,7 @@
 """nshmc_tpu_torch's latent CLI (`--algo hmc_latent`) end to end on the tiny
 latent config (CPU, f32), with a synthetic image in place of the absent
-dataset; its extract_kept_samples against the JAX package's; and --mesh,
-not ported yet, with the latent algorithms."""
+dataset; its extract_kept_samples against the JAX package's; and --mesh
+with the latent baselines in one process."""
 import json
 import os
 
@@ -64,12 +64,15 @@ def test_extract_kept_samples_matches_jax():
 
 @pytest.mark.parametrize("algo", ["resample", "resample_original"])
 def test_cli_unported_latent_algos_raise(tmp_path, algo):
-    """Both ReSamples are ported (tests/test_torch_cli_baselines.py); what
-    stays unported with them, --mesh > 1, raises before any output."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1 item 2"):
-        cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu",
-                  "--algo", algo, "--mesh", "2"])
-    assert not (tmp_path / "o").exists()
+    """Both ReSamples are ported (tests/test_torch_cli_baselines.py) and
+    ignore --mesh in one process, as the JAX CLI does: a run with --mesh 2
+    equals the run without it (hmc_latent's --mesh: test_torch_multihost.py)."""
+    data = _synthetic_dataset(tmp_path / "data")
+    argv = ["--config", CFG, "--data_path", str(data), "--device", "cpu", "--no-bf16",
+            "--algo", algo, "--timesteps", "1"]
+    with_mesh = cli.main([*argv, "--mesh", "2", "-i", str(tmp_path / "mesh")])
+    assert with_mesh == cli.main([*argv, "-i", str(tmp_path / "o")])
+    assert (tmp_path / "mesh" / "0.png").exists()
 
 
 def test_cli_latent_refuses_to_fall_back_to_cpu(tmp_path):

@@ -3,7 +3,7 @@ tiny configs (CPU, f32, a 1-step DDIM ladder to keep them short, synthetic
 images): --image_batch, --save_epochs --diagnostics, --adapt da, --algo
 hmc_cond, dmplug_adam and dmplug_lbfgs, --checkpoint-dir run twice (pixel
 and latent), every command line of scripts/run_fullbudget.sh parsed, and
-the flags still unported raising with their ROADMAP item."""
+--mesh > 1 in one process raising with the launcher's name."""
 import json
 import os
 import re
@@ -151,7 +151,21 @@ def test_parser_takes_every_jax_flag_but_noise():
             assert (a.default, a.choices, a.type) == (j.default, j.choices, j.type), a.dest
 
 
-def test_mesh_raises_with_its_pointer(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", "--mesh", "2"])
+def test_mesh_raises_with_its_pointer(tmp_path, monkeypatch):
+    """--mesh > 1 with hmc or hmc_latent shards the chains over --mesh
+    processes, one a device: in one process it raises before any output,
+    naming the launcher and the NSHMC_* contract; over a mesh the chains
+    must split evenly."""
+    from nshmc_tpu_torch.parallel import multihost as mh
+
+    for cfg, algo in ((CFG, "hmc"), (LATENT_CFG, "hmc_latent")):
+        with pytest.raises(ValueError, match="NSHMC_DIST=1 torchrun --nproc_per_node 2 -m "
+                                             "nshmc_tpu_torch.cli --mesh 2"):
+            cli.main(["--config", cfg, "-i", str(tmp_path / "o"), "--device", "cpu", "--algo",
+                      algo, "--mesh", "2"])
+        assert not (tmp_path / "o").exists()
+    monkeypatch.setattr(mh, "process_count", lambda: 2)
+    with pytest.raises(ValueError, match="--chains 3 is not a multiple of --mesh 2"):
+        cli.main(["--config", CFG, "-i", str(tmp_path / "o"), "--device", "cpu", "--mesh", "2",
+                  "--chains", "3"])
     assert not (tmp_path / "o").exists()

@@ -46,7 +46,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                    # the remaining models and utilities
                    "models/ddpm_simple.py", "models/ldm/transformer.py", "models/__init__.py",
                    "utils/lpips.py", "utils/datasets.py", "utils/lmdb_reader.py",
-                   "utils/profiling.py", "utils/ckpt_util.py"):
+                   "utils/profiling.py", "utils/ckpt_util.py",
+                   # chain sharding over processes
+                   "parallel/__init__.py", "parallel/chains.py", "parallel/multihost.py"):
         assert os.path.join("nshmc_tpu_torch", module) in rel, module
     bad = []
     for path in files:
@@ -109,7 +111,9 @@ def test_entry_points_default_to_cuda():
                   "nshmc_tpu_torch.hmc.adaptation.DualAveragingState.create",
                   "nshmc_tpu_torch.models.ldm.ldm.LatentDiffusion.create",
                   "nshmc_tpu_torch.models.ddpm_simple.load_ddpm_checkpoint",
-                  "nshmc_tpu_torch.utils.lpips.try_load_lpips"):
+                  "nshmc_tpu_torch.utils.lpips.try_load_lpips",
+                  "nshmc_tpu_torch.parallel.chains.chain_mesh",
+                  "nshmc_tpu_torch.parallel.multihost.rank_device"):
         assert found.get(entry) == "cuda", (entry, found.get(entry))
     assert not [k for k, v in found.items() if str(v) == "cpu"], found
 
