@@ -36,7 +36,7 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 import torch
 
-from ..utils import checkpointing
+from ..utils import checkpointing, profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +124,8 @@ def make_pixel_loss_fn(decode, operator, y0: torch.Tensor) -> LossFn:
 
     def loss_fn(x):
         x0 = decode(x)
-        residual = y0 - operator.H_img(x0)
+        with profiling.span("operator"):
+            residual = y0 - operator.H_img(x0)
         return torch.sum(residual**2, dim=1), x0
 
     return loss_fn
@@ -168,9 +169,17 @@ def _concat(states: Sequence):
 def value_and_grad(loss_fn: LossFn, x: torch.Tensor):
     x = x.detach().requires_grad_(True)
     with torch.enable_grad():
-        loss, dec = loss_fn(x)
-        (grad,) = torch.autograd.grad(loss.sum(), x)
+        with profiling.span("hmc.forward"):
+            loss, dec = loss_fn(x)
+        with profiling.span("hmc.backward"):
+            (grad,) = torch.autograd.grad(loss.sum(), x)
     return loss.detach(), dec.detach(), grad
+
+
+def _any(mask: torch.Tensor) -> bool:
+    """mask.any() read on the host: a synchronisation with the device."""
+    with profiling.span("hmc.sync"):
+        return bool(mask.any())
 
 
 def draw_attempt(generator: Optional[torch.Generator], x: torch.Tensor):
@@ -199,8 +208,11 @@ def leapfrog_propose(loss_fn: LossFn, x: torch.Tensor, sigma_y: torch.Tensor,
     positions (the mass-matrix adaptation's statistics)."""
     sigma_y, eps = _per_chain(sigma_y, x), _per_chain(eps, x)
     inv2s2 = 1.0 / (2.0 * sigma_y**2)
-    mass = (mass_diag if mass_diag is not None
-            else torch.tensor(m, dtype=x.dtype, device=x.device))
+    if mass_diag is not None:
+        mass = mass_diag
+    else:
+        with profiling.span("hmc.sync"):  # a copy from pageable host memory waits for the stream
+            mass = torch.tensor(m, dtype=x.dtype, device=x.device)
     inv_mass = 1.0 / mass
 
     def kinetic(p):
@@ -217,13 +229,14 @@ def leapfrog_propose(loss_fn: LossFn, x: torch.Tensor, sigma_y: torch.Tensor,
     if collect_welford:
         mean = m2 = torch.zeros_like(x)
     for step in range(n_leapfrog):
-        xp = xp + eps * inv_mass * p
-        loss, dec, grad = value_and_grad(loss_fn, xp)
-        p = p - eps * (xp + inv2s2 * grad)
-        if collect_welford:
-            delta = xp - mean
-            mean = mean + delta / torch.tensor(step + 1, dtype=x.dtype)
-            m2 = m2 + delta * (xp - mean)
+        with profiling.span("hmc.leapfrog_step"):
+            xp = xp + eps * inv_mass * p
+            loss, dec, grad = value_and_grad(loss_fn, xp)
+            p = p - eps * (xp + inv2s2 * grad)
+            if collect_welford:
+                delta = xp - mean
+                mean = mean + delta / torch.tensor(step + 1, dtype=x.dtype)
+                m2 = m2 + delta * (xp - mean)
     p = p + (eps / 2.0) * (xp + inv2s2 * grad)  # undo the last half over-step
 
     h1 = 0.5 * _sum_chain(xp**2) + inv2s2.flatten() * loss + kinetic(p)
@@ -239,10 +252,11 @@ def leapfrog_propose(loss_fn: LossFn, x: torch.Tensor, sigma_y: torch.Tensor,
 def write_samples(samples: torch.Tensor, write: torch.Tensor, idx: torch.Tensor,
                   dec: torch.Tensor) -> torch.Tensor:
     """samples[c, idx[c]] = dec[c] for the chains c where `write`."""
-    if not bool(write.any()):
+    if not _any(write):
         return samples
     samples = samples.clone()
-    rows = write.nonzero().flatten()
+    with profiling.span("hmc.sync"):  # nonzero's size is read on the host
+        rows = write.nonzero().flatten()
     samples[rows, idx.long()[rows]] = dec[rows]
     return samples
 
@@ -342,14 +356,16 @@ def drive(attempt: Attempt, state, active: Callable, rounds: int, counter: str,
     draws = iter(draws) if draws is not None else None
     since_save = 0
     while rnd < rounds:
-        if not bool(active(state).any()):
+        if not _any(active(state)):
             break
         for _ in range(apr):
-            live = active(state)
-            if not bool(live.any()):
-                break
-            p0, u = next(draws) if draws is not None else draw(state)
-            state = _select(live, attempt_in_waves(attempt, state, p0, u, chain_chunk), state)
+            with profiling.span("hmc.attempt", attempt=True):
+                live = active(state)
+                if not _any(live):
+                    break
+                p0, u = next(draws) if draws is not None else draw(state)
+                state = _select(live, attempt_in_waves(attempt, state, p0, u, chain_chunk),
+                                state)
         rnd += apr
         if callback is not None:
             callback(state, rnd - 1)

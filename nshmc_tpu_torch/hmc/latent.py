@@ -34,6 +34,7 @@ from typing import Iterable, Optional, Tuple
 
 import torch
 
+from ..utils import profiling
 from .engine import LossFn, _per_chain, draw_attempt, drive, leapfrog_propose
 
 
@@ -179,7 +180,10 @@ def make_latent_loss_fn(ddim_decode_z, decode_first_stage, operator, y0: torch.T
 
     def loss_fn(z):
         z0 = ddim_decode_z(z)
-        residual = y0[None] - operator.H_img(decode_first_stage(z0))
+        with profiling.span("vq.decode"):
+            img = decode_first_stage(z0)
+        with profiling.span("operator"):
+            residual = y0[None] - operator.H_img(img)
         return torch.sum(residual**2, dim=1), z0
 
     return loss_fn

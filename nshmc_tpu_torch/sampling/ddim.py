@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from ..schedules import DDIMSequence, DiffusionSchedule
+from ..utils import profiling
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -27,14 +28,16 @@ def ddim_step(model_fn: ModelFn, schedule: DiffusionSchedule, xt: torch.Tensor,
     x0_t = clip((xt - eps*sqrt(1-at)) / sqrt(at), -1, 1)
     xt_next = sqrt(at_next)*x0_t + sqrt(1-at_next)*eps
     """
-    c = xt.shape[-1]
-    at = schedule.alpha_bar(t)
-    at_next = schedule.alpha_bar(t_next)
-    tb = torch.full((xt.shape[0],), float(t), dtype=torch.float32, device=xt.device)
-    et = model_fn(xt, tb)[..., :c]
-    x0_t = (xt - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
-    x0_t = torch.clamp(x0_t, -1.0, 1.0)
-    xt_next = torch.sqrt(at_next) * x0_t + torch.sqrt(1.0 - at_next) * et
+    with profiling.span("ddim.step"):
+        c = xt.shape[-1]
+        at = schedule.alpha_bar(t)
+        at_next = schedule.alpha_bar(t_next)
+        tb = torch.full((xt.shape[0],), float(t), dtype=torch.float32, device=xt.device)
+        with profiling.span("ddim.model"):
+            et = model_fn(xt, tb)[..., :c]
+        x0_t = (xt - et * torch.sqrt(1.0 - at)) / torch.sqrt(at)
+        x0_t = torch.clamp(x0_t, -1.0, 1.0)
+        xt_next = torch.sqrt(at_next) * x0_t + torch.sqrt(1.0 - at_next) * et
     return xt_next, x0_t
 
 

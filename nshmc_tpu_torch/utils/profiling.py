@@ -1,95 +1,110 @@
-"""Tracing and profiling helpers on torch.profiler (port of
+"""Spans of the sampler and FLOP counting on torch.profiler (port of
 nshmc_tpu/utils/profiling.py).
 
-  - `trace(dirname)`: profile the block (CPU, and CUDA where there is a
-    card) and write a Chrome trace, dirname/trace.json.
-  - `named(name)`: a region that shows in the profiler's timeline
-    (`record_function`), and in Nsight as an NVTX range where CUDA is up.
-  - `Timer`: wall-clock records by name, synchronising a CUDA device first
-    when asked.
+  - `span(name)`: a region of the sampler (an MH attempt, a leapfrog step,
+    a forward, a backward, a host synchronisation, ...), recorded in memory
+    while a torch profiler is active and not at all otherwise. It adds no
+    event to the profiler's trace (no `record_function`, no NVTX range), so
+    the device intervals and host operations a trace holds are the same
+    with or without spans; the spans share the trace's clock
+    (`time.time_ns`), so a reader lays them over the trace's device
+    intervals.
+  - `spans(t0_ns, t1_ns)`: the spans that lie within a window, or None
+    where the bounded record has already dropped part of it.
   - `compiled_flops(fn, *args)`: the FLOPs of one call, counted op by op
     with torch.utils.flop_counter's formulas (2 per multiply-add of the
     matmuls and convolutions it runs, forward and any backward it runs).
-  - `enable_persistent_cache`: XLA's compilation cache has no counterpart
-    here (nothing is compiled ahead of a run), so it does nothing and
-    returns None.
+
+For Nsight ranges, run under `torch.autograd.profiler.emit_nvtx()`.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import json
-import os
+import itertools
+import threading
 import time
-from typing import Optional
+from typing import List, NamedTuple, Optional
 
 import torch
 
-
-def enable_persistent_cache(path: Optional[str] = None) -> None:
-    """A no-op kept for the JAX package's callers: there is no XLA cache to
-    enable. Returns None, as the JAX helper does when it cannot enable it."""
-    return None
+SPAN_LIMIT = 65_536  # spans kept; a traced MH attempt of the flagship records ~215
 
 
-@contextlib.contextmanager
-def trace(dirname: str):
-    """Profile the block and write dirname/trace.json (Chrome trace)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(dirname, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield dirname
-    prof.export_chrome_trace(os.path.join(dirname, "trace.json"))
+class Span(NamedTuple):
+    name: str
+    start_ns: int         # time.time_ns(), the clock of the profiler's events
+    end_ns: int
+    id: int
+    parent: Optional[int]  # id of the span open around it on its thread
+    thread: int           # threading.get_ident() of the thread it ran on
+    attempt: Optional[int]  # id of the attempt span open when it began
 
 
-@contextlib.contextmanager
-def named(name: str):
-    """Annotate a region (leapfrog / energy / metrics) for the profiler and,
-    on CUDA, for NVTX."""
-    nvtx = torch.cuda.is_available()
-    if nvtx:
-        torch.cuda.nvtx.range_push(name)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        if nvtx:
-            torch.cuda.nvtx.range_pop()
-
-
-
-class Timer:
-    """Wall-clock timing; `sync` (a tensor or a device) is synchronised
-    before the clock stops when it is on CUDA."""
-
+class _Stacks(threading.local):
     def __init__(self):
-        self.records = {}
+        self.stack = []  # ids of the spans open on this thread, innermost last
+
+
+class SpanRecord:
+    """A bounded in-memory record of spans, oldest dropped first. Each
+    thread keeps its own stack of open spans; the open attempt is shared by
+    every thread (autograd's device threads run inside the caller's
+    attempt)."""
+
+    def __init__(self, limit: int = SPAN_LIMIT):
+        self._done = collections.deque(maxlen=limit)
+        self._lost_ns = None  # end of the newest span dropped
+        self._lock = threading.Lock()
+        self._ids = itertools.count(1)
+        self._local = _Stacks()
+        self._attempt = None
+
+    def span(self, name: str, attempt: bool = False):
+        """Context manager: the block as span `name` while a profiler is
+        active. `attempt`: the span is an MH attempt, whose id every span
+        begun inside it carries."""
+        if not torch._C._autograd._profiler_enabled():
+            return _OFF
+        return self._open(name, attempt)
+
+    def within(self, t0_ns: int, t1_ns: int) -> Optional[List[Span]]:
+        """The spans that began at or after t0_ns and ended by t1_ns, by
+        start; None where a dropped span ended at or after t0_ns."""
+        with self._lock:
+            if self._lost_ns is not None and self._lost_ns >= t0_ns:
+                return None
+            done = list(self._done)
+        return sorted((s for s in done if s.start_ns >= t0_ns and s.end_ns <= t1_ns),
+                      key=lambda s: s.start_ns)
 
     @contextlib.contextmanager
-    def time(self, name: str, sync=None):
-        t0 = time.time()
-        yield
-        if sync is not None:
-            device = torch.device(sync.device if isinstance(sync, torch.Tensor) else sync)
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-        self.records.setdefault(name, []).append(time.time() - t0)
+    def _open(self, name: str, attempt: bool):
+        stack = self._local.stack
+        sid, parent, outer = next(self._ids), (stack[-1] if stack else None), self._attempt
+        if attempt:
+            self._attempt = sid
+        in_attempt = self._attempt
+        stack.append(sid)
+        start = time.time_ns()
+        try:
+            yield
+        finally:
+            end = time.time_ns()
+            stack.pop()
+            if attempt:
+                self._attempt = outer
+            with self._lock:
+                if len(self._done) == self._done.maxlen:
+                    self._lost_ns = self._done[0].end_ns
+                self._done.append(Span(name, start, end, sid, parent, threading.get_ident(),
+                                       in_attempt))
 
-    def summary(self) -> dict:
-        import numpy as np
 
-        return {k: {"mean_s": float(np.mean(v)), "n": len(v), "total_s": float(np.sum(v))}
-                for k, v in self.records.items()}
-
-    def dump(self, path: Optional[str] = None):
-        s = json.dumps(self.summary(), indent=2)
-        if path:
-            with open(path, "w") as f:
-                f.write(s)
-        return s
+_OFF = contextlib.nullcontext()
+_RECORD = SpanRecord()
+span = _RECORD.span
+spans = _RECORD.within
 
 
 def compiled_flops(fn, *args) -> float:

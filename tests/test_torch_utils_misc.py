@@ -1,9 +1,8 @@
-"""nshmc_tpu_torch's checkpoint registry and profiling helpers: the registry
+"""nshmc_tpu_torch's checkpoint registry and FLOP counter: the registry
 equals the JAX package's key by key and resolves names the same way, but
-never downloads (no socket is opened); `trace`, `named`, `Timer`,
-`compiled_flops` (against the analytic 2 x multiply-adds) and the no-op
-`enable_persistent_cache` on the CPU."""
-import json
+never downloads (no socket is opened); `compiled_flops` against the
+analytic 2 x multiply-adds on the CPU. The sampler's spans are
+tests/test_torch_spans.py's."""
 import os
 import socket
 
@@ -63,28 +62,6 @@ def test_never_downloads(tmp_path, no_network):
         tck.download(tck.URL_MAP["celeba_hq"], str(tmp_path / "x.ckpt"))
 
 
-def test_timer_and_named():
-    t = profiling.Timer()
-    x = torch.ones(8, 8)
-    for _ in range(2):
-        with t.time("matmul", sync=x), profiling.named("region"):
-            x @ x
-    s = t.summary()
-    assert s["matmul"]["n"] == 2 and s["matmul"]["total_s"] >= s["matmul"]["mean_s"] >= 0
-    assert json.loads(t.dump()) == s
-
-
-def test_trace_writes_a_chrome_trace(tmp_path):
-    out = tmp_path / "trace"
-    with profiling.trace(str(out)) as d:
-        with profiling.named("leapfrog"):
-            torch.ones(16, 16) @ torch.ones(16, 16)
-    assert d == str(out)
-    with open(out / "trace.json") as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "leapfrog" for e in events)
-
-
 def test_compiled_flops_is_two_per_multiply_add():
     a, b = torch.ones(4, 5), torch.ones(5, 6)
     assert profiling.compiled_flops(lambda p, q: p @ q, a, b) == 2 * 4 * 5 * 6
@@ -106,9 +83,3 @@ def test_compiled_flops_counts_an_input_gradient():
 
     fwd = 2 * (2 * 4 * 8 * 8) * (3 * 3 * 3)
     assert profiling.compiled_flops(value_and_grad) == 2 * fwd
-
-
-def test_enable_persistent_cache_is_a_no_op(tmp_path):
-    assert profiling.enable_persistent_cache(str(tmp_path / "cache")) is None
-    assert profiling.enable_persistent_cache() is None
-    assert not (tmp_path / "cache").exists()
