@@ -10,11 +10,16 @@ It builds the port's kernels from the sources in this checkout and then:
   2. drives the main path: the flagship pixel noise-space HMC through the
      port's engine — ADM U-Net at 256^2 (configs/ffhq.yaml, random weights
      from a seed), 3-step DDIM, 92% random inpainting, tau 1.0 / eps 0.05
-     (L = 20), 8 chains as the batch, bf16 — for a few MH attempts, with every
-     kernel's launch count set to 0 just before and read just after (K1's
-     f32 kernel: none; K2a once for each GN+SiLU and GroupNorm32 call that
-     forward hooks count during the run, K2b once for each GN+SiLU call;
-     no plain version at all, counted by wrappers). The
+     (L = 20), 8 chains as the batch, bf16 — for a few MH attempts, each
+     evaluation a replay of the DDIM decoder's CUDA graphs, with every
+     kernel's launches read from a device trace of the run (K1's f32
+     kernel: none; K2a once for each GN+SiLU and GroupNorm32 call that
+     forward hooks count in one eager evaluation, times the evaluations,
+     K2b once for each GN+SiLU call, K2c once for each GN+SiLU call of each
+     U-Net forward; the wrappers' counters, which each replay advances,
+     equal to them; no plain version at all), and one evaluation replayed
+     against the eager ladder, the same bits of loss, decoded image and
+     gradient. The
      anneal lasts one epoch and one sample is kept, and chain 0's accept
      uniform is 0, so it accepts every finite proposal: the run reaches the
      (0.1, 0.01) switch and the sample write at the flagship shape;
@@ -189,6 +194,21 @@ BWD_KERNELS = {"one_launch": "gn_backward", "twopass": "gn_backward_twopass"}
 # K1 edge shapes (B, T, H, ch), checked in bf16 and f32: ragged query and key tiles
 ATTN_EDGE_SHAPES = tuple((2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64))
 GN_BWD_OPS = 40  # fp32 operations per element of the GN+SiLU backward (~20 for the sums, ~20 for dx)
+# each kernel_counters() name's kernel as a device trace names it: (name, CUDA
+# C++); a C++ kernel's name carries its template and parameter list, a Triton
+# kernel's does not. K2c's two-pass design launches three kernels and P1
+# a call (P4 two): a call is counted by one of its kernels.
+DEVICE_KERNELS = {"attention": ("attn_fwd_tc_kernel", True),
+                  "attention_f32": ("attn_fwd_f32_kernel", True),
+                  "gn_stats": ("gn_stats_kernel", True),
+                  "gn_stats_triton_chain": ("stats_kernel", False),
+                  "gn_apply": ("apply_kernel", False),
+                  "gn_backward": ("gn_bwd_fused_kernel", True),
+                  "gn_backward_twopass": ("gn_bwd_finish_kernel", True),
+                  "probe_stats": ("stats_partial_kernel", True),
+                  "probe_apply": ("apply_kernel", True),
+                  "probe_touch": ("touch_kernel", True),
+                  "probe_mma_stats": ("mma_stats_partial_kernel", True)}
 
 
 def fail(msg):
@@ -707,11 +727,14 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with plain_calls() as plain:  # the engine's own draws, but chain 0 accepts
+    # the engine's own draws, but chain 0 accepts; the eps-net ladder replays
+    # the decoder's CUDA graphs after its first calls, so the launches are
+    # read from a device trace
+    with plain_calls() as plain, device_launches(torch) as launches:
         out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=accepting_draws(
             engine, [p.gen], state.z, hcfg.total_attempts, [0]), callback=timed)
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
+    twopass_parts = launches.pop("gn_backward_twopass_parts")
+    wrappers = {k: f.launches for k, f in counters.items()}  # as the replays advance them
     bwd_calls = gn.groupnorm_silu_backward.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = hcfg.n_leapfrog + 1
@@ -722,7 +745,8 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
           f"{CHAINS} chains; attempt times {[round(v, 3) for v in steps]} s; {evals_per_s:.3f} "
           f"energy+grad evals/s (attempts 2+), useful {LATENT_USEFUL_TFLOP * evals_per_s:.1f} "
           f"TFLOP/s; peak memory {peak_gb:.2f} GB")
-    print(f"latent path ({dname}) kernel launches: {launches}; GN+SiLU backward calls "
+    print(f"latent path ({dname}) kernel launches on the card (device trace): {launches}; "
+          f"GN+SiLU backward calls "
           f"{bwd_calls} (per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
     # K1 at every attention block of the 3 eps-net forwards; K2a at every
     # GN+SiLU and GroupNorm32 site of those and of the decoder, K2b at every
@@ -743,6 +767,9 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
     for k, v in launches.items():
         check(v == want.get(k, 0), f"latent path ({dname}): kernel {k} launched {v} times, "
                                    f"{want.get(k, 0)} expected")
+    check(wrappers == launches and twopass_parts == launches["gn_backward_twopass"],
+          f"latent path ({dname}): the wrappers' counters {wrappers} are not the card's "
+          f"launches {launches} (two-pass parts {twopass_parts})")
     check(bool(torch.isfinite(out.z).all()), "latent chain state is not finite")
     check(int(out.accepted[0]) == hcfg.total_attempts,
           f"chain 0 did not accept every proposal: accepted {out.accepted.tolist()}")
@@ -1055,12 +1082,15 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
         base_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        with plain_calls() as plain:
+        # the decoder's first calls run eagerly, then it replays its CUDA
+        # graphs: the launches are read from a device trace
+        with plain_calls() as plain, device_launches(torch) as launches:
             new, log_ratio = engine.hmc_attempt(recorded, hcfg, state, gen)
-            torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        launches = {k: f.launches for k, f in counters.items()}
+        launches.pop("gn_backward_twopass_parts")
+        check(launches == {k: f.launches for k, f in counters.items()},
+              f"{deg}: the wrappers' counters are not the card's launches {launches}")
         check(len(seen) == evals, f"{deg}: {len(seen)} evaluations, {evals} expected")
         start, end = seen[0], seen[-1]
         check(bool(torch.isfinite(start).all() and torch.isfinite(end).all()
@@ -1304,8 +1334,11 @@ class Phase9:
         base_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         box = {}
+        # without hooks a decoder replays its CUDA graphs, which no wrapper
+        # sees: such a run's launches are read from a device trace
+        on_card = device_launches(torch) if root is None else contextlib.nullcontext()
         t0 = time.perf_counter()
-        with plain_calls() as plain:
+        with plain_calls() as plain, on_card as traced:
             if root is not None:
                 gn_calls, _, norm_calls = self.kc.count_sites(
                     root, lambda: box.setdefault("out", fn()))
@@ -1315,6 +1348,9 @@ class Phase9:
         dt = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = {k: f.launches for k, f in self.counters.items()}
+        if traced is not None:
+            traced.pop("gn_backward_twopass_parts")
+            launches = traced
         k2c = launches["gn_backward"] + launches["gn_backward_twopass"]
         check(not any(plain.values()), f"{label}: plain versions ran on the card: {plain}")
         calls = gn.groupnorm_silu_backward.launches  # channel chunks: several launches a call
@@ -1494,8 +1530,11 @@ def batch_gap_causes(p, decode32, x16):
     {setting: per-chain values}."""
     torch, engine, gn = p.torch, p.engine, p.gn
     op, y0, _, _ = p.problem("inpaint_random", 1)
-    loss16 = engine.make_pixel_loss_fn(p.decode, op, y0[0])
-    loss32 = engine.make_pixel_loss_fn(decode32, op, y0[0])
+    # both on the eager ladder: a decoder's graphs would not see the plain
+    # versions swapped in below, the wrappers count only eager launches, and
+    # f32's pool at batch 16 (~55 GB, as the eager peak) would not fit
+    loss16 = engine.make_pixel_loss_fn(p.decode.ladder, op, y0[0])
+    loss32 = engine.make_pixel_loss_fn(decode32.ladder, op, y0[0])
     no_cudnn = (torch.backends.cudnn, "enabled", False)
     settings = {"kernels, cuDNN": (),
                 "kernels, cuDNN deterministic": ((torch.backends.cudnn, "deterministic", True),),
@@ -2577,6 +2616,58 @@ def kernel_counters(torch):
             **{f.__name__: f for f in sp.KERNELS}}
 
 
+@contextlib.contextmanager
+def device_launches(torch):
+    """Yields a dict that, when the block ends, holds each kernel_counters()
+    name's launches on the card while the block ran, read from a device
+    trace (torch.profiler, device activity only), CUDA graph replays
+    included, which no wrapper sees; and under "gn_backward_twopass_parts"
+    the launches of the two-pass design's other two kernels, each."""
+    import re
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        yield counts
+        torch.cuda.synchronize()
+    seen = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            # "void (anonymous namespace)::gn_stats_kernel<__nv_bfloat16>(uint4 const*, ...)",
+            # or its mangled form "_ZN12_GLOBAL__N_115gn_stats_kernelI...", or Triton's "apply_kernel"
+            name = e.name().removeprefix("void ").replace("(anonymous namespace)::", "")
+            mangled = re.match(r"_Z(?:N12_GLOBAL__N_1)?(\d+)", name)
+            key = ((name[mangled.end():mangled.end() + int(mangled.group(1))], True) if mangled
+                   else (name.split("<")[0].split("(")[0].split("::")[-1].strip(), "(" in name))
+            seen[key] = seen.get(key, 0) + 1
+    counts.update({k: seen.get(v, 0) for k, v in DEVICE_KERNELS.items()})
+    parts = {seen.get((n, True), 0) for n in ("gn_bwd_partial_kernel", "gn_bwd_dx_kernel")}
+    counts["gn_backward_twopass_parts"] = parts.pop() if len(parts) == 1 else sorted(parts)
+
+
+def release_graphs(torch, label):
+    """Drop the CUDA graphs of every DDIM decoder still alive and their
+    memory pools (sampling/graphs.py: a decoder keeps them while it lives,
+    and no other allocation can use them), return the cached memory, and
+    print what stays."""
+    import gc
+    from nshmc_tpu_torch.sampling import graphs
+
+    gc.collect()
+    decoders = [o for o in gc.get_objects() if isinstance(o, graphs.Decoder)]
+    keys = sum(len(d.graphs) for d in decoders)
+    for d in decoders:
+        d.release()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    print(f"{label}: released the graphs of {keys} keys of {len(decoders)} live decoders; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 1e9:.2f} GB reserved after")
+
+
 def launch_ranks(argv, label, timeout=600):
     """`python3 argv...` as MESH ranks of one gloo group on localhost (the
     NSHMC_* contract, parallel/multihost.py::launch_local), from the
@@ -2651,7 +2742,7 @@ def mesh_rank(out_dir):
     the NSHMC_* contract): its 4 of the 8 chains through the sharded runner
     on cuda:0, every kernel count set to 0 just before and read just after,
     one warm-up evaluation first; saves the gathered state, its decisions,
-    launches, time and peak memory to OUT_DIR/rank{i}.pt."""
+    launches (a device trace), time and peak memory to OUT_DIR/rank{i}.pt."""
     import numpy as np
     import torch
 
@@ -2678,13 +2769,13 @@ def mesh_rank(out_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with plain_calls() as plain:
+    with plain_calls() as plain, device_launches(torch) as launches:
         out, clear = mesh_run(torch, engine, prob, runner)
-        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches.pop("gn_backward_twopass_parts")
     rec = dict(rank=mesh.rank, device=str(mesh.device), s=dt, evals=prob.hcfg.n_leapfrog + 1,
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, plain=dict(plain),
-               launches={k: f.launches for k, f in counters.items()},
+               launches=launches,
                state={k: v.cpu() for k, v in vars(out).items()}, clear=clear.cpu())
     torch.save(rec, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     mh.shutdown()
@@ -2707,13 +2798,14 @@ def phase_mesh_library(torch, np, engine, counters, card):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with plain_calls() as plain:
+    # the decoder replays its CUDA graphs after its first calls, here and in
+    # each rank: the launches are read from a device trace
+    with plain_calls() as plain, device_launches(torch) as launches:
         ref, clear_ref = mesh_run(torch, engine, prob)
-        torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     unsharded = dict(s=dt, evals_per_s=evals / dt,
                      peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    launches = {k: f.launches for k, f in counters.items()}
+    launches.pop("gn_backward_twopass_parts")
     check(not any(plain.values()) and all(launches[k] > 0 for k in MESH_KERNELS[:3])
           and launches["gn_backward"] + launches["gn_backward_twopass"] > 0,
           f"phase 12(a) unsharded run: launches {launches}, plain calls {plain}")
@@ -2860,6 +2952,7 @@ def main():
         from nshmc_tpu_torch.ops import groupnorm as gn
         from nshmc_tpu_torch.ops import stream_probe as sp
         from nshmc_tpu_torch.sampling import ddim
+        from nshmc_tpu_torch.sampling import graphs as ddim_graphs
         from nshmc_tpu_torch.scripts import groupnorm_stats_variants as stats_variants
         from nshmc_tpu_torch.scripts import kernel_check as kc
         from nshmc_tpu_torch import operators as ops_mod
@@ -2938,6 +3031,19 @@ def main():
     on_path = set(MAIN_PATH_KERNELS) | {BWD_KERNELS[gn.bwd_design(*shape, 2, sms)]
                                         for shape in kc.FLAGSHIP_GN_SITES}
     counters = kernel_counters(torch)
+    # one evaluation under forward hooks counts every GN+SiLU and GroupNorm32
+    # call, recomputes included (a hook sends the decoder down the eager
+    # ladder); the next ones warm up and capture the decoder's CUDA graphs, and
+    # the MH attempts replay them (sampling/graphs.py): no wrapper runs there,
+    # so the run's launches are read from a device trace
+    with plain_calls() as plain:
+        gn_eval, _, norm_eval = kc.count_sites(
+            model, lambda: engine.value_and_grad(loss_fn, state.x))
+        for _ in range(ddim_graphs.WARMUP + 1):  # eager warm-up calls, then the capture
+            engine.value_and_grad(loss_fn, state.x)
+    check(len(decode.graphs) == 1, f"the flagship decoder captured {len(decode.graphs)} graphs")
+    (graphs_,) = decode.graphs.values()
+    replays0 = graphs_.replays
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
     base_gb = torch.cuda.memory_allocated() / 1e9
@@ -2950,33 +3056,43 @@ def main():
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    run = {}  # forward hooks count every GN+SiLU and GroupNorm32 call, recomputes included
-    with plain_calls() as plain:
-        gn_calls, _, norm_calls = kc.count_sites(model, lambda: run.setdefault(
-            "out", engine.run_hmc(loss_fn, hcfg, state, gen, callback=timed,
-                                  draws=accepting_draws(engine, [gen], state.x, ATTEMPTS, [0]))))
-    out = run["out"]
-    torch.cuda.synchronize()
-    launches = {k: f.launches for k, f in counters.items()}
+    with plain_calls() as plain_run, device_launches(torch) as launches:
+        out = engine.run_hmc(loss_fn, hcfg, state, gen, callback=timed,
+                             draws=accepting_draws(engine, [gen], state.x, ATTEMPTS, [0]))
+    plain = {k: v + plain_run[k] for k, v in plain.items()}
+    twopass_parts = launches.pop("gn_backward_twopass_parts")
+    wrappers = {k: f.launches for k, f in counters.items()}  # as the replays advance them
     bwd_calls = gn.groupnorm_silu_backward.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = hcfg.n_leapfrog + 1
     steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
+    check(graphs_.replays - replays0 == evals * len(steps) and len(decode.graphs) == 1,
+          f"{graphs_.replays - replays0} graph replays for {evals * len(steps)} evaluations")
+    gn_calls = {k: v * evals * len(steps) for k, v in gn_eval.items()}
+    norm_calls = {k: v * evals * len(steps) for k, v in norm_eval.items()}
     steady = steps[1:] or steps
     evals_per_s = evals * len(steady) / sum(steady)
     print(f"main path: {len(steps)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
-          f"bf16; attempt times {[round(s, 3) for s in steps]} s; "
+          f"bf16, each replaying the decoder's CUDA graphs, under a device trace; attempt "
+          f"times {[round(s, 3) for s in steps]} s; "
           f"{evals_per_s:.3f} energy+grad evals/s (attempts 2+); peak memory {peak_gb:.2f} GB "
           f"({base_gb:.2f} allocated before the run)")
-    print(f"main path kernel launches: {launches} "
+    print(f"main path kernel launches on the card (device trace): {launches} "
           f"(per energy+grad eval: "
-          f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} })")
-    print(f"GN+SiLU backward calls per U-Net forward: {bwd_calls / (3 * evals * len(steps)):.2f} "
+          f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} }); the two-pass "
+          f"design's partial and dx kernels {twopass_parts} each")
+    print(f"GN+SiLU backward calls per U-Net forward: "
+          f"{(launches['gn_backward'] + launches['gn_backward_twopass']) / (3 * evals * len(steps)):.2f} "
           f"(expected one per GN+SiLU site: {n_gn}), one kernel design each: "
           f"{launches['gn_backward']} one-launch + {launches['gn_backward_twopass']} two-pass")
-    check(bwd_calls == 3 * evals * len(steps) * n_gn
-          and bwd_calls == launches["gn_backward"] + launches["gn_backward_twopass"],
-          f"{bwd_calls} GN+SiLU backward calls for {n_gn} sites: {launches}")
+    check(launches["gn_backward"] + launches["gn_backward_twopass"] == 3 * evals * len(steps) * n_gn
+          and twopass_parts == launches["gn_backward_twopass"],
+          f"K2c launched {launches} (two-pass parts {twopass_parts}) for {n_gn} GN+SiLU sites")
+    # ops/launches.py: each replay advances the wrappers' counters by what the
+    # capture counted, so they must read what the card ran
+    check(wrappers == launches and bwd_calls == 3 * evals * len(steps) * n_gn,
+          f"the wrappers' counters {wrappers} ({bwd_calls} K2c calls) are not the card's "
+          f"launches {launches}")
     n_evals = evals * len(steps)
     n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
     print(f"main path K2a launches per energy+grad eval by shape (hooks; GN+SiLU, then "
@@ -3014,6 +3130,13 @@ def main():
     print(f"main path sample write: chains {written.nonzero().flatten().tolist()} wrote their "
           f"sample (chain 0: anneal -> switch to ({hcfg.post_tau}, {hcfg.post_epsilon}) -> "
           f"sample, equal to its last decoded image)")
+    eager = engine.make_pixel_loss_fn(lambda z: ddim.ddim_decode(model, sched, seq, z), op, y0[0])
+    got, want = (engine.value_and_grad(f, out.x) for f in (loss_fn, eager))
+    diffs = [float((a_ - b_).abs().max()) for a_, b_ in zip(got, want)]
+    print(f"main path: one evaluation replayed against the eager ladder, max |diff| of loss, "
+          f"decoded image, gradient {diffs}; replays {graphs_.replays}")
+    check(all(torch.equal(a_, b_) for a_, b_ in zip(got, want)),
+          f"the decoder's graphs disagree with the eager ladder: {diffs}")
 
     # ---- 3. each kernel against its plain version, at the main path's shapes --
     records = {}
@@ -3207,7 +3330,8 @@ def main():
           f"{int((results['cpu'][3] != 0).sum())} of {results['cpu'][3].numel()} entries)")
     check(rel[0] < 1e-4 and max(rel[1:]) < 2e-4 and float(results["cpu"][3].abs().max()) > 0,
           f"flagship f32 forward or gradient disagrees with the CPU: {rel}")
-    del model32, model, out, state, run, decode, loss_fn, decode_w, loss_w, op_w
+    del model32, model, out, state, decode, loss_fn, decode_w, loss_w, op_w, graphs_
+    release_graphs(torch, "phases 2-4")
 
     # ---- 5. the port's CLI end to end ---------------------------------------------
     phase_cli(np, d, "inpaint_random")
@@ -3224,6 +3348,7 @@ def main():
     latent_kernels = phase_latent_kernels(torch, attn, gn, kc, stats_records)
     phase_latent_cli(np)
     print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
+    release_graphs(torch, "phase 7")
 
     # ---- 8. the forward operators ------------------------------------------------------------
     t0 = time.time()
@@ -3238,6 +3363,7 @@ def main():
     kernel_wizard = phase_kernel_wizard(torch, np)
     phase_cli(np, d, "sr4")
     print(f"phase 8 (the forward operators) took {time.time() - t0:.1f} s")
+    release_graphs(torch, "phase 8")
 
     # ---- 9. the rest of the noise-space samplers and solvers ---------------------------------
     t0 = time.time()
@@ -3254,9 +3380,11 @@ def main():
                 counters, x_orig, d, c, sigma_0, card, f32_decoder)
     phase_noise_space(p9, hcfg)
     del model, p9.model, p9.decode
+    release_graphs(torch, "phase 9 (a)-(f)")
     phase_latent_checkpoint_cli(p9)
     print(f"phase 9 (the rest of the noise-space samplers and solvers) took "
           f"{time.time() - t0:.1f} s")
+    release_graphs(torch, "phase 9")
 
     # ---- 10. the iterative baselines ------------------------------------------------------------
     import types
@@ -3275,6 +3403,7 @@ def main():
     phase_baseline_cli(np, os.path.join(ROOT, "configs", "ffhq.yaml"), "dps", d)
     phase_baseline_cli(np, LATENT_CFG, "resample", d)
     print(f"phase 10 (the iterative baselines) took {time.time() - t0:.1f} s")
+    release_graphs(torch, "phase 10")
 
     # ---- 11. the remaining models and utilities -------------------------------------------------
     t0 = time.time()
@@ -3286,6 +3415,7 @@ def main():
     lpips_run = phase_lpips(torch, np, card)
     ddpm_kernels, ddpm_picks = phase_ddpm_kernels(torch, gn, kc)
     print(f"phase 11 (the remaining models and utilities) took {time.time() - t0:.1f} s")
+    release_graphs(torch, "phase 11")
 
     # ---- 12. chains over processes: --mesh and multi-process runs --------------------------------
     t0 = time.time()
@@ -3313,7 +3443,9 @@ def main():
                "probe_apply": ("cuda", probe_src, "scripts/pallas_stream_probe.py:73"),
                "probe_touch": ("cuda", probe_src, "scripts/pallas_stream_probe.py:183"),
                "probe_mma_stats": ("cuda", probe_src, "scripts/pallas_stream_probe.py:198")}
-    # each HMC run's launch counts by kernel, each kernel counted where it launches
+    # each HMC run's launch counts by kernel: read from a device trace where the
+    # run replays a decoder's CUDA graphs (the flagship and latent runs, phase
+    # 9 (g), the mesh ranks), else counted by the wrappers where they launch
     paths = {"flagship bf16": launches, "latent bf16": latent_bf16["launches"],
              "latent f32": latent_f32["launches"],
              **{f"phase 9 {k}": r_["launches"] for k, r_ in p9.records.items()},

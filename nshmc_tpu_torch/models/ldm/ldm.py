@@ -20,6 +20,7 @@ package's 'quad' schedule with linear_start 0.0015, linear_end 0.0195.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -104,7 +105,11 @@ class LatentDiffusion(nn.Module):
         return self.unet(z, t)
 
     def model_fn(self, stop_gradient: bool = True):
-        return lambda z, t: self.apply_model(z, t, stop_gradient)
+        """`apply_model` as a ModelFn; `.module` is the eps-net it calls (a
+        DDIM decoder observes its hooks and weights, sampling/graphs.py)."""
+        fn = functools.partial(self.apply_model, stop_gradient=stop_gradient)
+        fn.module = self.unet
+        return fn
 
     # -- first stage --------------------------------------------------------
     def decode_first_stage(self, z: torch.Tensor,

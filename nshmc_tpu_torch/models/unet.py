@@ -309,7 +309,10 @@ class UNetModel(nn.Module):
         cfg = self.cfg
         if (cfg.remat == "big" and res is not None and res >= cfg.remat_min_res
                 and torch.is_grad_enabled()):
-            return checkpoint(block, h, emb, context, use_reentrant=False)
+            # the units draw no random numbers: no RNG state to keep, none to
+            # read inside a CUDA graph's capture (sampling/graphs.py)
+            return checkpoint(block, h, emb, context, use_reentrant=False,
+                              preserve_rng_state=False)
         return block(h, emb, context)
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,

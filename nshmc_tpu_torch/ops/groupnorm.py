@@ -566,6 +566,14 @@ def _bwd_counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
+def counter_buffers(device: torch.device) -> tuple:
+    """K2a's and K2c's counter buffers on `device` as they are now (None
+    where none is made yet). A CUDA graph that captured a launch holds
+    them: a buffer grown later replaces the dict's entry, not the graph's
+    pointer."""
+    return _stats_counter_bufs.get(device), _bwd_counter_bufs.get(device)
+
+
 def bwd_slab_rows(b: int, r: int, c: int, elem_size: int, sms: int) -> int:
     """The two-pass design's rows per partial-sums block: 1,024, halved
     while the (slab, batch) grid would give the SMs fewer than two blocks

@@ -4,7 +4,8 @@ The ladder x_T -> x_0 is one Python loop over the (t, t_next) pairs; the
 JAX package's scan / unroll / chunked-unroll forms are compile forms with
 identical numerics and have no counterpart here. Autograd through the loop
 is the HMC gradient oracle; activation memory is bounded by the U-Net's own
-checkpointing (models/unet.py).
+checkpointing (models/unet.py). `make_decoder`'s decoder replays the ladder
+and its backward as CUDA graphs where it can (sampling/graphs.py).
 
 `model_fn(x_nhwc, t) -> eps` may return 6 channels (learn_sigma); the
 first `x.shape[-1]` are used.
@@ -17,6 +18,7 @@ import torch
 
 from ..schedules import DDIMSequence, DiffusionSchedule
 from ..utils import profiling
+from .graphs import Decoder
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
@@ -51,10 +53,13 @@ def ddim_decode(model_fn: ModelFn, schedule: DiffusionSchedule, seq: DDIMSequenc
     return xt
 
 
-def make_decoder(model_fn: ModelFn, schedule: DiffusionSchedule, seq: DDIMSequence):
-    """Close over model and schedule: decode(x_T) -> x_0 (NHWC batch)."""
-
-    def decode(x):
-        return ddim_decode(model_fn, schedule, seq, x)
-
-    return decode
+def make_decoder(model_fn: ModelFn, schedule: DiffusionSchedule,
+                 seq: DDIMSequence) -> Decoder:
+    """Close over model and schedule: decode(x_T) -> x_0 (NHWC batch). On a
+    card, a call of the HMC oracle replays CUDA graphs of the ladder
+    (sampling/graphs.py); for that the decoder observes the network's hooks
+    and weights: `model_fn` itself where it is an nn.Module, else the module
+    it carries as `.module` (none: the ladder always runs eagerly)."""
+    module = model_fn if isinstance(model_fn, torch.nn.Module) else getattr(
+        model_fn, "module", None)
+    return Decoder(lambda x: ddim_decode(model_fn, schedule, seq, x), module)
