@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # needs one CUDA card
     python3 chip_smoke.py --trace OUT_DIR  # profile one flagship and two latent evaluations
+    python3 chip_smoke.py --sd             # the build and phase 13 alone
 
 It builds the port's kernels from the sources in this checkout and then:
   1. holds the port's output against its plain-PyTorch path on the CPU on a
@@ -152,6 +153,13 @@ It builds the port's kernels from the sources in this checkout and then:
      sharded: rank i takes image i, both rows gathered in idx order; (d)
      --algo hmc_latent --mesh 2 --chains 8 on configs/ffhq_latent.yaml.
      Two ranks on one card measure oversubscription, not scaling.
+ 13. Stable Diffusion 2.1-base (configs/sd21_base_latent.yaml, bf16, seeded
+     weights and context, 8 chains at 512^2; `phase_sd`): K1 at its four
+     self-attention shapes, K2a and K2b at the U-Net's 2560-channel sites
+     (K2a's channel chunks), K2a, K2b and K2c at every KL decoder site
+     (512^2 included), each against its plain version; then 4 energy+grad
+     evaluations under a device trace, the kernels against the sites and
+     against the wrappers' counters.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
 {"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
@@ -549,13 +557,15 @@ CODE_FLIP_BOUND = 0.01  # share of quantizer codes that may differ, card vs CPU 
 def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantize=False):
     """The latent path at a config: the LDM with seeded random weights (the
     layers the reference zero-initialises small, as in random_state_dict),
-    92% random inpainting of a synthetic image, y0 = H(x) + 0.1 noise, the
-    3-step DDIM ladder with the stop-grad eps-net, and the latent loss."""
+    the config's scale_factor and, for a conditional U-Net, the CLI's seeded
+    context, 92% random inpainting of a synthetic image, y0 = H(x) + 0.1
+    noise, the 3-step DDIM ladder with the stop-grad eps-net, and the
+    latent loss."""
     import types
 
     import yaml
     from nshmc_tpu_torch.cli import host_randn, image_generators
-    from nshmc_tpu_torch.cli_latent import latent_configs
+    from nshmc_tpu_torch.cli_latent import latent_configs, load_context
     from nshmc_tpu_torch.hmc import latent
     from nshmc_tpu_torch.models.ldm import LatentDiffusion
     from nshmc_tpu_torch.operators import build_operator
@@ -567,9 +577,11 @@ def latent_problem(torch, np, cfg_path, dtype, dev, seed=SEED, force_not_quantiz
     ucfg, acfg = latent_configs(cfg)
     m = cfg["model"]
     ldm = LatentDiffusion.create(ucfg, acfg, m["linear_start"], m["linear_end"], m["timesteps"],
-                                 dtype=dtype, device=dev)
+                                 dtype=dtype, device=dev, scale_factor=m.get("scale_factor", 1.0))
     ldm.unet.load_state_dict(random_state_dict(torch, ldm.unet, seed))
     ldm.first_stage.load_state_dict(random_state_dict(torch, ldm.first_stage, seed + 1))
+    if ldm.conditional:
+        ldm.set_context(load_context(cfg, seed, ucfg.context_dim))
     d, c = cfg["data"]["image_size"], cfg["data"]["channels"]
     op = build_operator("inpaint_random", c, d, np.random.default_rng(seed), device=dev)
     x_orig = 2 * torch.from_numpy(synthetic_image(np, d, seed)).to(dev)[None] - 1
@@ -2312,12 +2324,12 @@ def counted_run(torch, kc, gn, counters, root, fn, n, label):
     return rec, launches, gn_calls, norm_calls, attn_calls
 
 
-def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize):
+def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize, k1_calls=0):
     """K2a at every GN+SiLU and GroupNorm32 call, K2b at every GN+SiLU call,
     K2c at every GN+SiLU call (each differentiated once: no remat on these
     paths; a call too wide for one kernel call, an f32 C > 1024, as its
-    channel chunks, each a call of its own) and launched; K1 never, nothing
-    else."""
+    channel chunks, each a call of its own) and launched; K1 `k1_calls`
+    times (a SpatialTransformer's self-attention), nothing else."""
     n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
     k2c = launches["gn_backward"] + launches["gn_backward_twopass"]
     calls = sum(n * gn.bwd_channel_chunks(c, gn.NUM_GROUPS, itemsize)
@@ -2327,8 +2339,9 @@ def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize):
           f"{label}: K2a {launches['gn_stats']}, K2b {launches['gn_apply']}, K2c calls "
           f"{launches['gn_backward_calls']} ({k2c} launches, {calls} expected) for {n_silu} "
           f"GN+SiLU and {n_norm} GroupNorm32 calls")
-    check(launches["attention"] + launches["attention_f32"] == 0,
-          f"{label}: K1 launched {launches['attention']} + {launches['attention_f32']} times")
+    check(launches["attention"] + launches["attention_f32"] == k1_calls,
+          f"{label}: K1 launched {launches['attention']} + {launches['attention_f32']} times, "
+          f"not {k1_calls}")
     allowed = {"gn_stats", "gn_apply", "gn_backward", "gn_backward_twopass", "gn_backward_calls",
                "attention", "attention_f32"}
     for k, v in launches.items():
@@ -2402,8 +2415,9 @@ def phase_conditional(torch, kc, gn, counters, card):
     """(c) configs/ffhq_latent.yaml's latent U-Net with context_dim 512,
     transformer_depth 1 (SpatialTransformers at its 16 attention sites),
     random weights, 8 chains at 64^2 and a random (8, 1, 512) context: a
-    warm-up, then one forward and the input gradient of sum(eps^2) counted,
-    in f32 and bf16. Returns {dtype: record}."""
+    warm-up, then one forward and the input gradient of sum(eps^2) counted
+    (K1 at each site's self-attention), in f32 and bf16. Returns {dtype:
+    record}."""
     from nshmc_tpu_torch.models.ldm import latent_unet_config
     from nshmc_tpu_torch.models.unet import UNetModel
 
@@ -2433,7 +2447,8 @@ def phase_conditional(torch, kc, gn, counters, card):
         label = f"phase 11(c) conditional U-Net {dname}"
         rec, launches, gn_calls, norm_calls, attn_calls = counted_run(
             torch, kc, gn, counters, model, fwd_grad, 1, label)
-        check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize)
+        self_attn = sum(name.endswith(".attn1") for name, _ in model.named_modules())
+        check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize, self_attn)
         check(norm_calls == kc.COND_UNET_NORM_SITES and not attn_calls
               and gn_calls == kc.LATENT_UNET_GN_SITES,
               f"{label}: GroupNorm32 sites {norm_calls}, GN+SiLU {gn_calls}, attention "
@@ -2442,8 +2457,8 @@ def phase_conditional(torch, kc, gn, counters, card):
                    dtype=dname, chains=CHAINS, card=card)
         print(f"{label}: forward + input gradient, {CHAINS} chains, (8, 1, 512) context: "
               f"{rec['ms']:.1f} ms, peak memory {rec['peak_memory_gb']:.2f} GB; launches "
-              f"{rec['launches_nonzero']} (K2a at the 16 SpatialTransformer norms too); K1 0, "
-              f"plain versions 0; {card}")
+              f"{rec['launches_nonzero']} (K2a at the 16 SpatialTransformer norms too; K1 at "
+              f"their {self_attn} self-attentions); plain versions 0; {card}")
         rec["launches"] = launches
         out[dname] = rec
         del model, eps, grad
@@ -2923,16 +2938,159 @@ def phase_mesh_clis(np):
     return {"cli_hmc_mesh_s": t_b, "cli_ddnm_data_sharded_s": t_c, "cli_hmc_latent_mesh_s": t_d}
 
 
+SD_CFG = os.path.join(ROOT, "configs", "sd21_base_latent.yaml")
+SD_EVALS = 4  # (c): two eager evaluations, the capture of the decoder's graphs, a replay
+
+
+def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
+    """13. Stable Diffusion 2.1-base (configs/sd21_base_latent.yaml at its
+    published widths, bf16, seeded weights and the CLI's seeded context, 8
+    chains, 92% random inpainting at 512^2). (a) The sites of one eps-net
+    forward and one KL decode, by hooks: the self-attention shapes against
+    kernel_check's SD_ATTN_SITES. (b) Each kernel against its plain version
+    at the sites that only this path gives it: K1 at each self-attention
+    shape (bf16, forward and gradient), K2a (with K2b) at the U-Net's sites
+    wider than K2a's STATS_MAX_C (its channel chunks) and K2b there in both
+    affine forms, and K2a, K2b and K2c at every KL decoder site (eps 1e-6;
+    the 512^2 ones at (8, 262144, 256) and (8, 262144, 128)). (c) SD_EVALS
+    energy+gradient evaluations under a device trace: the kernels launched
+    against the sites, and the wrappers' counters against the trace (K2a's
+    counts one a call, the trace one kernel a channel chunk). Returns the
+    record."""
+    from nshmc_tpu_torch.hmc import latent
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    t_phase = time.time()
+    p = latent_problem(torch, np, SD_CFG, bf16, dev)
+    state = latent.init_latent_chains(
+        latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
+                               sampling=0), CHAINS, p.z_shape, dev, z=p.z_t)
+    print(f"phase 13 SD built in {time.time() - t_phase:.1f} s; context "
+          f"{tuple(p.ldm.model.context.shape)}")
+
+    # (a) the sites, by hooks
+    attn_sites = {}
+
+    def attn_hook(mod, args, out):
+        key = (*args[0].shape[:2], mod.heads, mod.dim_head)
+        attn_sites[key] = attn_sites.get(key, 0) + 1
+
+    hooks = [m.register_forward_hook(attn_hook) for name, m in p.ldm.unet.named_modules()
+             if name.endswith(".attn1")]
+    try:
+        with torch.no_grad():
+            unet_gn, _, unet_norm = kc.count_sites(p.ldm.unet, lambda: p.ldm.apply_model(
+                state.z, torch.full((CHAINS,), 500.0, device=dev)))
+            dec_gn, _, dec_norm = kc.count_sites(p.ldm.first_stage.decoder,
+                                                 lambda: p.ldm.decode_first_stage(state.z))
+    finally:
+        for h in hooks:
+            h.remove()
+    check(attn_sites == kc.SD_ATTN_SITES,
+          f"phase 13 SD self-attention sites {attn_sites}, not {kc.SD_ATTN_SITES}")
+    wide = sorted(s for s in unet_gn if s[2] > gn.STATS_MAX_C)
+    check(bool(wide), f"phase 13 SD: no U-Net site wider than K2a's {gn.STATS_MAX_C} channels")
+    print(f"phase 13 (a) SD sites: eps-net forward {dict(attn_sites)} self-attentions, "
+          f"{sum(unet_gn.values())} GN+SiLU ({len(wide)} shapes above {gn.STATS_MAX_C} "
+          f"channels: {wide}), {sum(unet_norm.values())} GroupNorm32; KL decode "
+          f"{sum(dec_gn.values())} GN+SiLU {dict(dec_gn)}, {sum(dec_norm.values())} GroupNorm32")
+
+    # (b) each kernel against its plain version at this path's own sites
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    attn_recs = [attention_case(torch, attn, kc, shape, bf16, g, dev)
+                 for shape in sorted(attn_sites)]
+
+    def stats_case(shape, eps, where):
+        x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(bf16)
+        res = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+        chunks = gn.stats_channel_chunks(shape[2], gn.NUM_GROUPS)
+        check(res["ok"], f"phase 13 K2a {where} {shape} bf16 eps {eps} ({chunks} channel "
+                         f"chunks): {kc.stats_summary(res)}")
+        for form in kc.AFFINE_FORMS:
+            ok, err = apply_check(torch, gn, x, form, g)
+            check(ok, f"phase 13 K2b {where} {shape} bf16 {form}: apply max {err:.2e}")
+        print(f"phase 13 (b) K2a, K2b {where} {shape} bf16 eps {eps}, {chunks} channel "
+              f"chunk(s): {kc.stats_summary(res)}")
+
+    for shape in wide:
+        stats_case(shape, gn.EPS, "U-Net")
+    for shape in sorted(set(dec_gn) | set(dec_norm)):
+        stats_case(shape, 1e-6, "KL decoder")
+    for shape in sorted(dec_gn):
+        for form in kc.AFFINE_FORMS:
+            res = kc.gn_backward_check(*kc.gn_inputs(shape, bf16, form, g, dev, eps=1e-6))
+            check(res["ok"], f"phase 13 K2c KL decoder {shape} bf16 {form}: {res}")
+        print(f"phase 13 (b) K2c KL decoder {shape} bf16 ({kc.wrapper_route(shape, bf16, sms)}):"
+              f" dx {res['dx_err']:.2e}, affine {res['affine_rel_err']:.2e} ({res['tolerance']}),"
+              f" two calls {'bit-identical' if res['same_bits'] else 'DIFFER'}")
+
+    # (c) the kernels an evaluation launches: trace against sites and counters
+    for f in (*counters.values(), gn.groupnorm_silu_backward):
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eval_s = []
+    with plain_calls() as plain, device_launches(torch) as launches:
+        for _ in range(SD_EVALS):
+            t0 = time.perf_counter()
+            loss, _, grad = engine.value_and_grad(p.loss_fn, state.z)
+            torch.cuda.synchronize()
+            eval_s.append(time.perf_counter() - t0)
+    twopass_parts = launches.pop("gn_backward_twopass_parts")
+    wrappers = {k: f.launches for k, f in counters.items()}
+    bwd_calls = gn.groupnorm_silu_backward.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    def gn_count(sites, chunked):
+        return sum(n * (gn.stats_channel_chunks(s[2], gn.NUM_GROUPS) if chunked else 1)
+                   for s, n in sites.items())
+
+    n_attn, n_dec_gn = sum(attn_sites.values()), sum(dec_gn.values())
+    want_bwd = {"gn_backward": 0, "gn_backward_twopass": 0}
+    for shape, n in dec_gn.items():
+        want_bwd[BWD_KERNELS[gn.bwd_design(*shape, bf16.itemsize, sms)]] += n * SD_EVALS
+    stats_calls = (3 * (gn_count(unet_gn, False) + gn_count(unet_norm, False))
+                   + gn_count(dec_gn, False) + gn_count(dec_norm, False)) * SD_EVALS
+    want = {"attention": 3 * n_attn * SD_EVALS,
+            "gn_stats": (3 * (gn_count(unet_gn, True) + gn_count(unet_norm, True))
+                         + gn_count(dec_gn, True) + gn_count(dec_norm, True)) * SD_EVALS,
+            "gn_apply": (3 * sum(unet_gn.values()) + n_dec_gn) * SD_EVALS, **want_bwd}
+    print(f"phase 13 (c) SD: {SD_EVALS} energy+grad evaluations (eager, eager, capture, "
+          f"replay) in {[round(v, 3) for v in eval_s]} s, peak {peak_gb:.2f} GB; kernels on the "
+          f"card (device trace) {launches}; the wrappers' counters {wrappers}; K2a calls "
+          f"{stats_calls}; K2c calls {bwd_calls}")
+    check(not any(plain.values()), f"phase 13 SD: plain versions ran on the card: {plain}")
+    check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all()),
+          "phase 13 SD: energy or gradient not finite")
+    for k, v in launches.items():
+        check(v == want.get(k, 0), f"phase 13 SD: kernel {k} launched {v} times (device trace), "
+                                   f"{want.get(k, 0)} expected from the sites")
+    check(wrappers == {**launches, "gn_stats": stats_calls},
+          f"phase 13 SD: the wrappers' counters {wrappers} are not the card's launches "
+          f"{launches} (K2a: {stats_calls} calls)")
+    check(twopass_parts == launches["gn_backward_twopass"] and bwd_calls == n_dec_gn * SD_EVALS,
+          f"phase 13 SD: two-pass parts {twopass_parts}, K2c calls {bwd_calls}")
+    del p, state, loss, grad
+    release_graphs(torch, "phase 13")
+    print(f"phase 13 (Stable Diffusion 2.1-base) took {time.time() - t_phase:.1f} s; {card}")
+    return {"attention": attn_recs, "launches": launches, "k2a_calls": stats_calls,
+            "eval_s": eval_s, "peak_memory_gb": peak_gb,
+            "sites": {"attention": {str(k): v for k, v in attn_sites.items()},
+                      "unet_wide": [list(s) for s in wide],
+                      "kl_decoder_gn_silu": {str(k): v for k, v in dec_gn.items()}}}
+
+
 def main():
     t_start = time.time()
     args = sys.argv[1:]
-    trace_dir = None
+    trace_dir, sd_only = None, args == ["--sd"]
     if args[:1] == ["--trace"] and len(args) == 2:
         trace_dir = args[1]
     elif args[:1] == ["--mesh-rank"] and len(args) == 2:  # one rank of phase 12(a)
         return mesh_rank(args[1])
-    elif args:
-        fail("usage: chip_smoke.py [--trace OUT_DIR]")
+    elif args and not sd_only:
+        fail("usage: chip_smoke.py [--trace OUT_DIR | --sd]")
     try:
         import numpy as np
         import torch
@@ -2970,6 +3128,14 @@ def main():
 
     # ---- build -------------------------------------------------------------
     build_kernels(torch, build, gn)
+    if sd_only:  # phase 13 alone
+        sd = phase_sd(torch, np, engine, attn, gn, kc, kernel_counters(torch), card)
+        print(json.dumps({"sd": sd}))
+        print(card)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                                 "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return
 
     # ---- 1. small input against the CPU --------------------------------------
     phase_small_reference(torch, np, (unet, engine, ops_mod, ddim, sched_mod))
@@ -3424,6 +3590,9 @@ def main():
     print(f"phase 12 (chains over processes, {MESH} ranks on one card) took "
           f"{time.time() - t0:.1f} s")
 
+    # ---- 13. Stable Diffusion 2.1-base's own sites and launches ----------------------------------
+    sd = phase_sd(torch, np, engine, attn, gn, kc, counters, card)
+
     # K1's f32 kernel: its record at the f32 latent path's hot shape
     for r_ in latent_kernels["attention"]:
         if r_["dtype"] == "float32" and r_["shape"] == [CHAINS, 1024, 14, 32]:
@@ -3452,7 +3621,8 @@ def main():
              **{f"phase 10 {k}": r_["launches"] for k, r_ in baselines.items()},
              **{f"phase 11 DDPM {k}": r_["launches"] for k, r_ in ddpm_runs.items()},
              **{f"phase 11 conditional {k}": r_["launches"] for k, r_ in cond_runs.items()},
-             "phase 11 class-conditional bfloat16": class_run["launches"]}
+             "phase 11 class-conditional bfloat16": class_run["launches"],
+             "phase 13 SD bfloat16": sd["launches"]}
 
     kernels = []
     for name, (route, src, replaces) in sources.items():
@@ -3517,7 +3687,8 @@ def main():
         "conditional_unet": {k: {f: v for f, v in r_.items() if f != "launches"}
                              for k, r_ in cond_runs.items()},
         "class_conditional": {f: v for f, v in class_run.items() if f != "launches"},
-        "lpips": lpips_run, "ddpm_k2c_picks": ddpm_picks, "mesh": mesh}))
+        "lpips": lpips_run, "ddpm_k2c_picks": ddpm_picks, "mesh": mesh,
+        "sd": {f: v for f, v in sd.items() if f != "launches"}}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

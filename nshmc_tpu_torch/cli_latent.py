@@ -3,11 +3,16 @@
 nshmc_tpu_torch.cli` dispatches here).
 
 Builds the LDM (latent U-Net + VQ-f4 first stage, f32, random weights from
-seed 0 unless the config's checkpoint exists) and samples z_T at the latent
-shape. `hmc_latent` runs latent noise-space HMC with the chains as one batch
-(or in waves, `--chain_chunk`; snapshots and resume under
-`--checkpoint-dir`; sharded over the processes with `--mesh` > 1) and
-decodes the kept z0 latents (or, where no chain kept one, the final chain
+seed 0 unless the config's checkpoint exists; or what the config states:
+Stable Diffusion's conditional U-Net, KL-f8 first stage, `scale_factor` and
+bf16 `dtype`, configs/sd21_base_latent.yaml) and samples z_T at the latent
+shape. A conditional U-Net's context is the tensor saved at the config's
+`context_path` (a prompt's text-encoder output, (77, 1024) for SD 2), or a
+seeded N(0, 1) draw of that shape where none is given; every chain shares
+it, and no guidance is applied. `hmc_latent` runs latent noise-space HMC
+with the chains as one batch (or in waves, `--chain_chunk`; snapshots and
+resume under `--checkpoint-dir`; sharded over the processes with `--mesh` >
+1) and decodes the kept z0 latents (or, where no chain kept one, the final chain
 states through the DDIM ladder); `resample` runs
 ReSample over the DDIM ladder with the eps-net differentiated, and
 `resample_original` the original sampler (max(--timesteps, 10) DDIM steps,
@@ -38,6 +43,10 @@ def extract_kept_samples(rings: np.ndarray, kept: np.ndarray) -> np.ndarray:
     return np.concatenate(parts)
 
 
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+CONTEXT_TOKENS = 77  # a CLIP text encoder's sequence length
+
+
 def latent_configs(cfg):
     """A latent YAML config's (latent U-Net config, AutoencoderConfig)."""
     from .models.ldm import AutoencoderConfig, latent_unet_config
@@ -47,30 +56,55 @@ def latent_configs(cfg):
         image_size=cfg["model"]["image_size"], model_channels=u["model_channels"],
         num_res_blocks=u["num_res_blocks"], channel_mult=tuple(u["channel_mult"]),
         attention_ds=tuple(u["attention_resolutions"]),
-        num_head_channels=u["num_head_channels"])
+        num_head_channels=u["num_head_channels"], in_channels=u.get("in_channels", 3),
+        out_channels=u.get("out_channels", 3), context_dim=u.get("context_dim"),
+        transformer_depth=u.get("transformer_depth", 1),
+        use_linear_in_transformer=u.get("use_linear_in_transformer", False))
     ae_cfg = AutoencoderConfig(
         ch=fs["ch"], ch_mult=tuple(fs["ch_mult"]), num_res_blocks=fs["num_res_blocks"],
-        z_channels=fs["z_channels"], embed_dim=fs["embed_dim"], n_embed=fs["n_embed"],
-        resolution=fs["resolution"])
+        z_channels=fs["z_channels"], embed_dim=fs["embed_dim"],
+        n_embed=fs.get("n_embed", 0), resolution=fs["resolution"],
+        attn_resolutions=tuple(fs.get("attn_resolutions", ())),
+        double_z=fs.get("double_z", False))
     return unet_cfg, ae_cfg
 
 
+def load_context(cfg, seed: int, width: int) -> torch.Tensor:
+    """(1, S, width) float32: the tensor saved at the config's
+    `context_path` (torch.save or numpy .npy), else a N(0, 1) draw of
+    (1, CONTEXT_TOKENS, width) from a CPU generator seeded `seed`."""
+    path = cfg["model"].get("context_path", "")
+    if path:
+        ctx = (torch.from_numpy(np.load(path)) if path.endswith(".npy")
+               else torch.load(path, map_location="cpu", weights_only=True))
+        print(f"context {tuple(ctx.shape)} from {path}")
+        return ctx.float().reshape((1,) + tuple(ctx.shape[-2:]))
+    print(f"no context_path: a seeded N(0, 1) context (1, {CONTEXT_TOKENS}, {width}) stands "
+          "for the text encoder's output")
+    return torch.randn((1, CONTEXT_TOKENS, width), generator=torch.Generator().manual_seed(seed))
+
+
 def build_latent_model(cfg, opt, device):
-    """The config's LDM, f32, on `device`: (LatentDiffusion, latent U-Net
+    """The config's LDM, in its `dtype` (default float32), on `device`, with
+    a conditional U-Net's context set: (LatentDiffusion, latent U-Net
     config)."""
     from .models.ldm import LatentDiffusion
 
+    m = cfg["model"]
     unet_cfg, ae_cfg = latent_configs(cfg)
-    ldm = LatentDiffusion.create(unet_cfg, ae_cfg, linear_start=cfg["model"]["linear_start"],
-                                 linear_end=cfg["model"]["linear_end"],
-                                 num_timesteps=cfg["model"]["timesteps"], device=device)
-    ckpt = opt.ckpt or cfg["model"].get("ckpt_path", "")
+    ldm = LatentDiffusion.create(unet_cfg, ae_cfg, linear_start=m["linear_start"],
+                                 linear_end=m["linear_end"], num_timesteps=m["timesteps"],
+                                 dtype=DTYPES[m.get("dtype", "float32")], device=device,
+                                 scale_factor=m.get("scale_factor", 1.0))
+    ckpt = opt.ckpt or m.get("ckpt_path", "")
     if ckpt and os.path.exists(ckpt):
         sd = torch.load(ckpt, map_location="cpu", weights_only=False)  # a Lightning checkpoint
         ldm.load_checkpoint(sd.get("state_dict", sd))
         print(f"loaded LDM checkpoint {ckpt}")
     else:
         print(f"LDM checkpoint {ckpt!r} not found: random init")
+    if ldm.conditional:
+        ldm.set_context(load_context(cfg, getattr(opt, "seed", 0), unet_cfg.context_dim))
     return ldm, unet_cfg
 
 

@@ -180,8 +180,7 @@ def make_latent_loss_fn(ddim_decode_z, decode_first_stage, operator, y0: torch.T
 
     def loss_fn(z):
         z0 = ddim_decode_z(z)
-        with profiling.span("vq.decode"):
-            img = decode_first_stage(z0)
+        img = decode_first_stage(z0)
         with profiling.span("operator"):
             residual = y0[None] - operator.H_img(img)
         return torch.sum(residual**2, dim=1), z0

@@ -4,7 +4,9 @@ nshmc_tpu/models/ldm/transformer.py).
 What `UNetConfig(context_dim=...)` puts at the U-Net's attention sites in
 place of AttentionBlock: GroupNorm -> 1x1 proj_in -> `depth` pre-norm
 transformer blocks (self-attention, cross-attention over the context,
-GEGLU feedforward) -> 1x1 proj_out, plus the input.
+GEGLU feedforward) -> 1x1 proj_out, plus the input. With `use_linear`
+(Stable Diffusion 2's `use_linear_in_transformer`) proj_in and proj_out are
+linear layers on the tokens, `proj_in.weight` (inner, C).
 
   - Parameter names are the reference's `state_dict` keys (norm, proj_in,
     transformer_blocks.{i}.attn{1,2}.to_{q,k,v} bias-free, to_out.0,
@@ -12,10 +14,13 @@ GEGLU feedforward) -> 1x1 proj_out, plus the input.
     checkpoint loads with `load_state_dict(strict=True)`;
     `spatial_transformer_state_dict_from_jax` is the inverse of
     nshmc_tpu/models/ldm/transformer.py::port_spatial_transformer.
-  - Attention is plain torch, as the JAX package's `attention_xla`
-    (nshmc_tpu/ops/attention.py:35-41), not the attention kernel: q and k
-    scaled by d_head^-1/4 each in their own dtype, fp32 logits and softmax,
-    the weights cast to v's dtype before the product.
+  - Self-attention (`attn1`) goes through ops/attention.py::attention (the
+    kernel K1 on the card, its plain version on the CPU; a head width K1
+    does not take raises on the card); cross-attention (`attn2`, over the
+    context's few tokens) is plain torch, as the JAX package's
+    `attention_xla` (nshmc_tpu/ops/attention.py:35-41). Both scale q and k
+    by d_head^-1/4 each in their own dtype, take the softmax in fp32 and
+    cast the weights to v's dtype before the product.
   - `norm` is models/nn.py::GroupNorm32 at eps 1e-6, so its statistics run
     K2a on the card. The LayerNorms take eps 1e-5, torch's default and the
     reference block's; the JAX block uses flax's 1e-6 (ROADMAP.md Queue 3).
@@ -33,6 +38,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ...ops import attention as k1
+from ...utils import profiling
 from ..nn import GroupNorm32, nchw, nhwc
 
 NORM_EPS = 1e-6   # the SpatialTransformer's GroupNorm (the reference's Normalize)
@@ -85,9 +92,13 @@ class CrossAttention(nn.Module):
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim))
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        ctx = x if context is None else context.to(x.dtype)
         b, t, _ = x.shape
-        s, h, d = ctx.shape[1], self.heads, self.dim_head
+        h, d = self.heads, self.dim_head
+        if context is None:
+            q, k, v = (f(x).view(b, t, h, d) for f in (self.to_q, self.to_k, self.to_v))
+            return self.to_out(k1.attention(q, k, v).reshape(b, t, h * d))
+        ctx = context.to(x.dtype)
+        s = ctx.shape[1]
         q = self.to_q(x).view(b, t, h, d).transpose(1, 2).reshape(b * h, t, d)
         k = self.to_k(ctx).view(b, s, h, d).transpose(1, 2).reshape(b * h, s, d)
         v = self.to_v(ctx).view(b, s, h, d).transpose(1, 2).reshape(b * h, s, d)
@@ -126,25 +137,34 @@ class SpatialTransformer(nn.Module):
     takes_context = True
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, use_linear: bool = False):
         super().__init__()
         inner = n_heads * d_head
+        self.use_linear = use_linear
         self.norm = GroupNorm32(in_channels, eps=NORM_EPS)
-        self.proj_in = nn.Conv2d(in_channels, inner, 1)
+        self.proj_in = (nn.Linear(in_channels, inner) if use_linear
+                        else nn.Conv2d(in_channels, inner, 1))
         self.transformer_blocks = nn.ModuleList(
             [BasicTransformerBlock(inner, n_heads, d_head, context_dim) for _ in range(depth)])
-        self.proj_out = nn.Conv2d(inner, in_channels, 1)
+        self.proj_out = (nn.Linear(inner, in_channels) if use_linear
+                         else nn.Conv2d(inner, in_channels, 1))
         for p in self.proj_out.parameters():  # the reference's zero_module
             nn.init.zeros_(p)
 
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
-        b, c, hh, ww = x.shape
-        h = self.proj_in(self.norm(x).to(self.proj_in.weight.dtype))
-        tokens = nhwc(h).reshape(b, hh * ww, -1)
-        for block in self.transformer_blocks:
-            tokens = block(tokens, context)
-        h = nchw(tokens.view(b, hh, ww, -1)).contiguous(memory_format=torch.channels_last)
-        return self.proj_out(h) + x
+        with profiling.span("ldm.transformer"):
+            b, c, hh, ww = x.shape
+            h = self.norm(x).to(self.proj_in.weight.dtype)
+            if self.use_linear:
+                tokens = self.proj_in(nhwc(h).reshape(b, hh * ww, c))
+            else:
+                tokens = nhwc(self.proj_in(h)).reshape(b, hh * ww, -1)
+            for block in self.transformer_blocks:
+                tokens = block(tokens, context)
+            if self.use_linear:
+                tokens = self.proj_out(tokens)
+            h = nchw(tokens.view(b, hh, ww, -1)).contiguous(memory_format=torch.channels_last)
+            return (h if self.use_linear else self.proj_out(h)) + x
 
 
 def spatial_transformer_state_dict_from_jax(tree) -> Dict[str, np.ndarray]:

@@ -63,6 +63,7 @@ class UNetConfig:
     # conditional U-Net: SpatialTransformer at the attention sites
     context_dim: Optional[int] = None
     transformer_depth: int = 1
+    use_linear_in_transformer: bool = False  # Stable Diffusion 2's linear proj_in/proj_out
 
     @classmethod
     def from_model_yaml(cls, **kw) -> "UNetConfig":
@@ -249,7 +250,7 @@ class UNetModel(nn.Module):
             n_heads, d_head = ((heads, c // heads) if cfg.num_head_channels == -1
                                else (c // cfg.num_head_channels, cfg.num_head_channels))
             return SpatialTransformer(c, n_heads, d_head, cfg.transformer_depth,
-                                      cfg.context_dim)
+                                      cfg.context_dim, cfg.use_linear_in_transformer)
 
         ch = int(cfg.channel_mult[0] * mc)
         self.input_blocks = nn.ModuleList([TimestepBlock([_conv(cfg.in_channels, ch)])])

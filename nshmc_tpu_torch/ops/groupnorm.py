@@ -269,27 +269,55 @@ class _K2aWrapper:
 def group_stats(x: torch.Tensor, num_groups: int = NUM_GROUPS, eps: float = EPS):
     """K2a with the group combine: x (B, R, C) -> (sums (B, 2, C), mean_c,
     inv_c (B, C)), all fp32. A CUDA tensor launches csrc/groupnorm_stats.cu
-    once (counted in `.launches`), a CPU tensor takes `group_stats_plain`,
-    anything else raises. Calls on one device share its arrival counters,
-    so they must not run concurrently on two streams."""
+    (counted once a call in `.launches`), a CPU tensor takes
+    `group_stats_plain`, anything else raises. A C above the kernel's
+    STATS_MAX_C (Stable Diffusion's 2560-channel U-Net decoder inputs) is
+    cut into the fewest channel chunks of whole groups that fit
+    (`stats_channel_chunks`), each copied out and launched on its own
+    (`by_channel_chunks`): a device trace sees that many kernels, while
+    `.launches` still counts the one call, as benchmark/sites.py predicts
+    K2a's count from the GroupNorm calls. Calls on one device share its
+    arrival counters, so they must not run concurrently on two streams."""
     if x.device.type == "cpu":
         return group_stats_plain(x, num_groups, eps)
     if x.device.type != "cuda":
         raise ValueError(f"group_stats: unsupported device {x.device}")
     _check_cuda(x, "group_stats")
     b, r, c = x.shape
-    if c % 8 or c % num_groups or c > STATS_MAX_C or num_groups > STATS_MAX_G:
-        raise ValueError(f"group_stats: C = {c} must be a multiple of 8 and of {num_groups} "
-                         f"groups, at most {STATS_MAX_C}, with at most {STATS_MAX_G} groups")
+    n = stats_channel_chunks(c, num_groups)
     if r * (c // num_groups) >= 1 << 24:
         raise ValueError(f"group_stats: {r} rows x {c // num_groups} channels a group is not "
                          f"an exact fp32 count")
     if x.data_ptr() % 16:
         raise ValueError("group_stats: x must be 16-byte aligned")
-    plan = stats_plan(b, r, c, x.element_size(), _sm_count(x.device.index or 0))
-    out = launch_stats(x, plan, num_groups, eps)
+    plan = stats_plan(b, r, c // n, x.element_size(), _sm_count(x.device.index or 0))
+    out = by_channel_chunks(x, n, num_groups,
+                            lambda xc, groups: launch_stats(xc, plan, groups, eps))
     group_stats.launches += 1
     return out
+
+
+def by_channel_chunks(x: torch.Tensor, n: int, num_groups: int, stats):
+    """stats(x, num_groups) over n channel chunks of whole groups of x (B,
+    R, C), each copied out and given its own groups, joined along C."""
+    if n == 1:
+        return stats(x, num_groups)
+    parts = [stats(xc.contiguous(), num_groups // n) for xc in x.split(x.shape[2] // n, dim=2)]
+    return tuple(torch.cat(t, dim=-1) for t in zip(*parts))
+
+
+def stats_channel_chunks(c: int, num_groups: int) -> int:
+    """Into how many channel chunks of whole groups K2a cuts a call: the
+    fewest (dividing the group count) of at most STATS_MAX_C channels, each
+    a multiple of 8."""
+    if c % 8 or c % num_groups or num_groups > STATS_MAX_G:
+        raise ValueError(f"group_stats: C = {c} must be a multiple of 8 and of {num_groups} "
+                         f"groups, with at most {STATS_MAX_G} groups")
+    for n in range(1, num_groups + 1):
+        if num_groups % n == 0 and c // n <= STATS_MAX_C and (c // n) % 8 == 0:
+            return n
+    raise ValueError(f"group_stats: no chunks of whole groups of C = {c} ({num_groups} groups) "
+                     f"fit {STATS_MAX_C} channels")
 
 
 @_K2aWrapper

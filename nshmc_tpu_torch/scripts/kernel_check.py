@@ -10,7 +10,9 @@ kernel's registers, spills and shared memory (nvcc -Xptxas -v), then
 checks, on seeded random inputs:
   - K1 at the flagship's attention shapes (8, 256, 8, 64) and (8, 64, 8, 64),
     the latent U-Net's (LATENT_ATTN_SHAPES: 14, 21 and 28 heads of 32
-    channels at 1024, 256 and 64 tokens), and edge shapes (2, T, 2, ch) for
+    channels at 1024, 256 and 64 tokens), Stable Diffusion 2.1-base's
+    (SD_ATTN_SITES: 5, 10, 20 and 20 heads of 64 at 4096, 1024, 256 and 64
+    tokens), and edge shapes (2, T, 2, ch) for
     T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the two-pass
     tensor-core kernel) and f32 (the one-pass 3xTF32 tensor-core kernel);
   - K2c, both of its designs (the one launch and the two-pass one, each
@@ -88,7 +90,11 @@ SOURCES = ("attention.cu", "groupnorm_bwd.cu", "groupnorm_stats.cu")
 # (B, T, heads, ch) at ds 2, 4, 8 -> blocks a forward
 LATENT_ATTN_SITES = {(8, 1024, 14, 32): 5, (8, 256, 21, 32): 5, (8, 64, 28, 32): 6}
 LATENT_ATTN_SHAPES = list(LATENT_ATTN_SITES)
-ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64)] + LATENT_ATTN_SHAPES + [
+# Stable Diffusion 2.1-base's self-attention (configs/sd21_base_latent.yaml, 8
+# chains): (B, T, heads, ch) at ds 1, 2, 4 and the middle -> sites a forward
+SD_ATTN_SITES = {(8, 4096, 5, 64): 5, (8, 1024, 10, 64): 5, (8, 256, 20, 64): 5,
+                 (8, 64, 20, 64): 1}
+ATTN_SHAPES = [(8, 256, 8, 64), (8, 64, 8, 64)] + LATENT_ATTN_SHAPES + list(SD_ATTN_SITES) + [
     (2, t, 2, ch) for t in (1, 16, 100, 1000) for ch in (16, 32, 64)]
 GN_SHAPES = [(8, 65536, 128), (8, 16384, 256), (8, 1024, 512), (8, 64, 512), (3, 1000, 96),
              (1, 17, 32)]

@@ -9,6 +9,11 @@ nshmc_tpu/utils/profiling.py).
     with or without spans; the spans share the trace's clock
     (`time.time_ns`), so a reader lays them over the trace's device
     intervals.
+    A `timed` span also records a CUDA event on the current stream at its
+    opening and at its close (none while a stream is being captured):
+    `device_ms(span)` is then the device's time from the stream's arrival at
+    the one to its arrival at the other, the kernels launched inside the
+    span with any idle gap between them.
   - `spans(t0_ns, t1_ns)`: the spans that lie within a window, or None
     where the bounded record has already dropped part of it.
   - `compiled_flops(fn, *args)`: the FLOPs of one call, counted op by op
@@ -39,6 +44,28 @@ class Span(NamedTuple):
     parent: Optional[int]  # id of the span open around it on its thread
     thread: int           # threading.get_ident() of the thread it ran on
     attempt: Optional[int]  # id of the attempt span open when it began
+    events: Optional[tuple] = None  # a timed span's two CUDA events
+
+
+def device_ms(span: Span) -> Optional[float]:
+    """A timed span's device milliseconds (it waits for the second event);
+    None for a span without events."""
+    if span.events is None:
+        return None
+    start, end = span.events
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _event():
+    """A timing CUDA event recorded on the current stream, or None where no
+    card is in use or a stream is being captured."""
+    if not (torch.cuda.is_available() and torch.cuda.is_initialized()) \
+            or torch.cuda.is_current_stream_capturing():
+        return None
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
 
 
 class _Stacks(threading.local):
@@ -60,13 +87,13 @@ class SpanRecord:
         self._local = _Stacks()
         self._attempt = None
 
-    def span(self, name: str, attempt: bool = False):
+    def span(self, name: str, attempt: bool = False, timed: bool = False):
         """Context manager: the block as span `name` while a profiler is
         active. `attempt`: the span is an MH attempt, whose id every span
-        begun inside it carries."""
+        begun inside it carries. `timed`: it records CUDA events too."""
         if not torch._C._autograd._profiler_enabled():
             return _OFF
-        return self._open(name, attempt)
+        return self._open(name, attempt, timed)
 
     def within(self, t0_ns: int, t1_ns: int) -> Optional[List[Span]]:
         """The spans that began at or after t0_ns and ended by t1_ns, by
@@ -79,18 +106,20 @@ class SpanRecord:
                       key=lambda s: s.start_ns)
 
     @contextlib.contextmanager
-    def _open(self, name: str, attempt: bool):
+    def _open(self, name: str, attempt: bool, timed: bool):
         stack = self._local.stack
         sid, parent, outer = next(self._ids), (stack[-1] if stack else None), self._attempt
         if attempt:
             self._attempt = sid
         in_attempt = self._attempt
         stack.append(sid)
+        first = _event() if timed else None
         start = time.time_ns()
         try:
             yield
         finally:
             end = time.time_ns()
+            last = _event() if first is not None else None
             stack.pop()
             if attempt:
                 self._attempt = outer
@@ -98,7 +127,7 @@ class SpanRecord:
                 if len(self._done) == self._done.maxlen:
                     self._lost_ns = self._done[0].end_ns
                 self._done.append(Span(name, start, end, sid, parent, threading.get_ident(),
-                                       in_attempt))
+                                       in_attempt, None if last is None else (first, last)))
 
 
 _OFF = contextlib.nullcontext()

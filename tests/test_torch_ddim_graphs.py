@@ -12,8 +12,10 @@ stand-in that runs the ladder eagerly behind the
 graphs' interface.
 
 On the card (marker `card`, skipped without one), at the flagship's shape
-(8 x 256^2 x 3, the bf16 ADM U-Net) and on the latent ladder (8 x 64^2 x 3,
-the f32 eps-net, stop-gradient and full): graphed and eager give the same
+(8 x 256^2 x 3, the bf16 ADM U-Net), on the latent ladder (8 x 64^2 x 3,
+the f32 eps-net, stop-gradient and full) and on Stable Diffusion 2.1-base's
+(8 x 64^2 x 4, the bf16 conditional eps-net, whose context set_context
+changes after the capture): graphed and eager give the same
 bits of x_0, loss and gradient; two evaluations in a row leave the first's
 outputs intact; each launch counter of ops/ advances per replay by the eager
 count; a `load_state_dict` after the capture shows in the next replay; a
@@ -102,7 +104,7 @@ def latent_problem(config, device, stop_gradient=True, chains=2, seed=0):
                     generator=g).to(device)
     eager = lambda z: ddim_decode(fn, ldm.schedule, seq, z)  # noqa: E731
     return types.SimpleNamespace(
-        model=ldm.unet, net=ldm, decode=make_decoder(fn, ldm.schedule, seq), eager=eager, x=x,
+        model=fn.module, net=ldm, decode=make_decoder(fn, ldm.schedule, seq), eager=eager, x=x,
         loss=lambda decode: latent.make_latent_loss_fn(decode, ldm.decode_first_stage, op, y0))
 
 
@@ -111,6 +113,7 @@ CPU_PROBLEMS = {
     "latent": lambda: latent_problem("tiny_latent_test.yaml", CPU),
     "latent_full_grad": lambda: latent_problem("tiny_latent_test.yaml", CPU,
                                                stop_gradient=False),
+    "latent_sd": lambda: latent_problem("tiny_sd_test.yaml", CPU),
 }
 
 
@@ -305,6 +308,22 @@ def test_new_storage_recaptures(problem, stand_in):
     assert len(stand_in.made) == 2 and len(p.decode.graphs) == 1
 
 
+@pytest.mark.parametrize("new_shape", [False, True])
+def test_context_is_a_graph_input(stand_in, new_shape):
+    """A conditional eps-net's context, copied in place by set_context, is
+    read by the next replay without a new capture; a context of another
+    shape (a new buffer) makes a new one."""
+    p = latent_problem("tiny_sd_test.yaml", CPU)
+    warm(p, p.x)
+    old = value_and_grad(p, p.decode, p.x)
+    tokens = p.net.model.context.shape[1] + (2 if new_shape else 0)
+    p.net.set_context(torch.randn((1, tokens, 24), generator=torch.Generator().manual_seed(5)))
+    got = value_and_grad(p, p.decode, p.x)
+    assert_same(got, value_and_grad(p, p.eager, p.x))
+    assert not torch.equal(got[1], old[1])
+    assert len(stand_in.made) == (2 if new_shape else 1)
+
+
 @pytest.mark.parametrize("change", ["cudnn_off", "deterministic", "matmul_tf32", "shape"])
 def test_what_makes_a_new_capture(problem, stand_in, monkeypatch, change):
     """A replay runs what its capture found: a math flag or a new shape
@@ -417,6 +436,7 @@ def card():
 
 CARD_PROBLEMS = {
     "flagship": lambda dev: pixel_problem("ffhq.yaml", dev, bf16=True, chains=8),
+    "sd21_base": lambda dev: latent_problem("sd21_base_latent.yaml", dev, chains=8),
     "latent": lambda dev: latent_problem("ffhq_latent.yaml", dev, chains=8),
     "latent_full_grad": lambda dev: latent_problem("ffhq_latent.yaml", dev,
                                                    stop_gradient=False, chains=8),
@@ -501,6 +521,39 @@ def test_card_new_weights_show(on_card):
     finally:
         p.model.load_state_dict(old)
     assert_same(value_and_grad(p, p.decode, p.x), value_and_grad(p, p.eager, p.x))
+
+
+@pytest.fixture(scope="module")
+def sd_on_card(card):
+    p = CARD_PROBLEMS["sd21_base"](card)
+    yield p
+    del p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.card
+def test_card_context_is_a_graph_input(sd_on_card):
+    """After set_context(new), a replay of the captured graphs gives the
+    eager ladder's bits with the new context, not the captured one's."""
+    p = sd_on_card
+    warm(p, p.x)
+    captured = p.net.model.context.clone()
+    old = value_and_grad(p, p.decode, p.x)  # the capture's call
+    graphs_before, n = dict(p.decode.graphs), _replays(p)
+    new = torch.randn(captured.shape, generator=torch.Generator().manual_seed(9)).to(p.x.device)
+    try:
+        p.net.set_context(new)
+        got = value_and_grad(p, p.decode, p.x)
+        assert p.decode.graphs == graphs_before and _replays(p) == n + 1
+        want = value_and_grad(p, p.eager, p.x)
+        diffs = [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+        print(f"replay after set_context - eager, max |diff| of loss, z_0, gradient: {diffs}")
+        assert_same(got, want)
+        assert not torch.equal(got[1], old[1])
+    finally:
+        p.net.set_context(captured)
+    assert_same(value_and_grad(p, p.decode, p.x), old)
 
 
 @pytest.mark.card
