@@ -431,7 +431,8 @@ def attention_case(torch, attn, kc, shape, dt, g, dev):
     nbytes = 4 * b * t * h * ch * q.element_size()
     bms, by = bound_ms(nbytes, 4 * b * h * t * t * ch,
                        "tf32x3" if dt == torch.float32 else dname)
-    print(f"K1 attention {shape} {dname}: {kc.attention_summary(res)}; grad rel "
+    design = f" ({attn.bf16_design(t)} design)" if dt == torch.bfloat16 else ""
+    print(f"K1 attention {shape} {dname}{design}: {kc.attention_summary(res)}; grad rel "
           f"err {gerr:.2e} (tol {gtol}); device ms per call: kernel {ms:.4f}, plain "
           f"{plain:.4f}, sdpa {lib:.4f} (kernel/sdpa {ms / lib:.2f}), bound {bms:.4f} "
           f"({by}, {100 * bms / ms:.0f}% of it); eager kernel call {eager:.4f} ms")
@@ -3026,7 +3027,8 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
               f" two calls {'bit-identical' if res['same_bits'] else 'DIFFER'}")
 
     # (c) the kernels an evaluation launches: trace against sites and counters
-    for f in (*counters.values(), gn.groupnorm_silu_backward):
+    for f in (*counters.values(), gn.groupnorm_silu_backward, attn.attention_forward,
+              attn.LONG_LAUNCHES):
         f.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3040,6 +3042,7 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
     twopass_parts = launches.pop("gn_backward_twopass_parts")
     wrappers = {k: f.launches for k, f in counters.items()}
     bwd_calls = gn.groupnorm_silu_backward.launches
+    k1_calls, k1_long = attn.attention_forward.launches, attn.LONG_LAUNCHES.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def gn_count(sites, chunked):
@@ -3047,6 +3050,7 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
                    for s, n in sites.items())
 
     n_attn, n_dec_gn = sum(attn_sites.values()), sum(dec_gn.values())
+    n_long = sum(n for shape, n in attn_sites.items() if attn.bf16_design(shape[1]) == "long")
     want_bwd = {"gn_backward": 0, "gn_backward_twopass": 0}
     for shape, n in dec_gn.items():
         want_bwd[BWD_KERNELS[gn.bwd_design(*shape, bf16.itemsize, sms)]] += n * SD_EVALS
@@ -3059,7 +3063,8 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
     print(f"phase 13 (c) SD: {SD_EVALS} energy+grad evaluations (eager, eager, capture, "
           f"replay) in {[round(v, 3) for v in eval_s]} s, peak {peak_gb:.2f} GB; kernels on the "
           f"card (device trace) {launches}; the wrappers' counters {wrappers}; K2a calls "
-          f"{stats_calls}; K2c calls {bwd_calls}")
+          f"{stats_calls}; K2c calls {bwd_calls}; K1 calls {k1_calls}, {k1_long} of them in "
+          f"the long-sequence design")
     check(not any(plain.values()), f"phase 13 SD: plain versions ran on the card: {plain}")
     check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all()),
           "phase 13 SD: energy or gradient not finite")
@@ -3071,10 +3076,15 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
           f"{launches} (K2a: {stats_calls} calls)")
     check(twopass_parts == launches["gn_backward_twopass"] and bwd_calls == n_dec_gn * SD_EVALS,
           f"phase 13 SD: two-pass parts {twopass_parts}, K2c calls {bwd_calls}")
+    check(k1_calls == launches["attention"] and k1_long == 3 * n_long * SD_EVALS,
+          f"phase 13 SD: K1 calls {k1_calls} against {launches['attention']} on the card, "
+          f"{k1_long} in the long-sequence design against {3 * n_long * SD_EVALS} sites "
+          f"past {attn.TC_RES_MAX_T} tokens")
     del p, state, loss, grad
     release_graphs(torch, "phase 13")
     print(f"phase 13 (Stable Diffusion 2.1-base) took {time.time() - t_phase:.1f} s; {card}")
     return {"attention": attn_recs, "launches": launches, "k2a_calls": stats_calls,
+            "k1_long_launches": k1_long,
             "eval_s": eval_s, "peak_memory_gb": peak_gb,
             "sites": {"attention": {str(k): v for k, v in attn_sites.items()},
                       "unet_wide": [list(s) for s in wide],

@@ -9,13 +9,18 @@ softmax are fp32, the weights are cast to v's dtype before the PV product.
   - `attention_forward`: the wrapper. A CUDA tensor launches a
     hand-written kernel of `csrc/attention.cu` (see its header for what
     bounds it on Hopper and how its design answers), chosen by dtype: bf16
-    runs the two-pass tensor-core kernel (`mma.sync` m16n8k16, `cp.async`,
-    `ldmatrix`), f32 the one-pass online-softmax kernel on tensor cores in
-    3xTF32 (each product as three TF32 `mma.sync` m16n8k8 products of hi/lo
-    splits, which keeps fp32 accuracy where one TF32 product would break the
-    1e-4 f32 tolerance). A CPU tensor takes the plain version; anything else
-    raises. `attention_forward.launches` counts kernel launches of either
-    kernel, and `KERNEL_LAUNCHES[dtype].launches` those of the dtype's own.
+    runs the two-pass tensor-core kernel, f32 the one-pass online-softmax
+    kernel on tensor cores in 3xTF32 (each product as three TF32 `mma.sync`
+    m16n8k8 products of hi/lo splits, which keeps fp32 accuracy where one
+    TF32 product would break the 1e-4 f32 tolerance). The bf16 kernel has
+    two designs, which the C launcher picks by T alone (`bf16_design`): up
+    to TC_RES_MAX_T tokens K and V stay in shared memory (`mma.sync`
+    m16n8k16, `cp.async`, `ldmatrix`), above it they stream through a TMA
+    ring to two `wgmma` consumer warpgroups. A CPU tensor takes the plain
+    version; anything else raises. `attention_forward.launches` counts
+    kernel launches of either kernel, `KERNEL_LAUNCHES[dtype].launches` those
+    of the dtype's own, and `LONG_LAUNCHES.launches` the bf16 launches of
+    the long-sequence design.
   - `attention`: the `torch.autograd.Function` around the wrapper. Its
     backward recomputes the softmax in plain torch ops, a line-for-line
     translation of `_attention_bwd` (nshmc_tpu/ops/attention.py:108-121),
@@ -24,9 +29,10 @@ softmax are fp32, the weights are cast to v's dtype before the PV product.
 q, k and v arrive as strided views of one (B, T, H, 3, ch) qkv tensor. The
 kernels take their common strides, so the split costs no copy; views with
 differing strides are made contiguous first. Both kernels copy 16-byte row
-chunks, so the wrapper checks that the three pointers are 16-byte aligned
-and the strides multiples of 16 bytes (8 bf16 or 4 f32 elements), and
-raises otherwise.
+chunks (the long-sequence design reads them through TMA tensor maps over
+the same strides), so the wrapper checks that the three pointers are
+16-byte aligned and the strides multiples of 16 bytes (8 bf16 or 4 f32
+elements), and raises otherwise.
 """
 from __future__ import annotations
 
@@ -40,6 +46,15 @@ from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_CHANNELS = (16, 32, 64)
+# csrc/attention.cu's TC_RES_MAX_T: the longest sequence the bf16 kernel's
+# resident design takes; longer ones take the long-sequence design
+TC_RES_MAX_T = 256
+
+
+def bf16_design(t_len: int) -> str:
+    """The design of the bf16 kernel that a call over `t_len` tokens runs:
+    "resident" or "long", as the C launcher picks it."""
+    return "resident" if t_len <= TC_RES_MAX_T else "long"
 
 
 def _scale_in(x: torch.Tensor, scale: float) -> torch.Tensor:
@@ -124,6 +139,8 @@ class LaunchCount:
 # each kernel of csrc/attention.cu by the dtype that picks it
 KERNEL_LAUNCHES = {torch.bfloat16: LaunchCount("attn_fwd_tc_kernel"),
                    torch.float32: LaunchCount("attn_fwd_f32_kernel")}
+# the bf16 kernel's launches of its long-sequence design (T > TC_RES_MAX_T)
+LONG_LAUNCHES = LaunchCount("attn_fwd_tc_long")
 
 
 def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -136,6 +153,8 @@ def attention_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     out = launch(_launcher(), q, k, v)
     attention_forward.launches += 1
     KERNEL_LAUNCHES[q.dtype].launches += 1
+    if q.dtype == torch.bfloat16 and bf16_design(q.shape[1]) == "long":
+        LONG_LAUNCHES.launches += 1
     return out
 
 

@@ -3,8 +3,9 @@
 Each wrapper of ops/ counts its kernel's launches in `.launches` when it
 runs: K2a `groupnorm.group_stats` (which `channel_stats` shares), K2b
 `normalize_silu`, K2c `groupnorm_silu_backward` and its two designs
-`launch_one` and `launch_twopass`, K1 `attention.attention_forward` and each
-of K1's kernels in `attention.KERNEL_LAUNCHES`. A CUDA graph's replay runs
+`launch_one` and `launch_twopass`, K1 `attention.attention_forward`, each
+of K1's kernels in `attention.KERNEL_LAUNCHES` and the bf16 kernel's
+long-sequence design, `attention.LONG_LAUNCHES`. A CUDA graph's replay runs
 no wrapper, so the graph's owner (sampling/graphs.py) reads the set around
 the capture with `read` and adds the difference at each replay with
 `advance`."""
@@ -21,7 +22,8 @@ _COUNTERS = {"group_stats": groupnorm.group_stats, "normalize_silu": groupnorm.n
              "groupnorm_silu_backward": groupnorm.groupnorm_silu_backward,
              "launch_one": groupnorm.launch_one, "launch_twopass": groupnorm.launch_twopass,
              "attention_forward": attention.attention_forward,
-             **{c.__name__: c for c in attention.KERNEL_LAUNCHES.values()}}
+             **{c.__name__: c for c in attention.KERNEL_LAUNCHES.values()},
+             attention.LONG_LAUNCHES.__name__: attention.LONG_LAUNCHES}
 
 
 def read() -> Dict[str, int]:

@@ -9,8 +9,10 @@ differ in a line or two each:
     instruction, in place of the plain version's `expf` (~8 instructions);
   - `rows32`, `rows16`: 2 or 1 warps per block (32 or 16 query rows) in
     place of 4, for more blocks at small B * H * T;
-  - `streamed`: K and V stream through the two-stage ring at every T, in
-    place of staying in shared memory up to T = 256;
+  - `streamed`: every T takes the bf16 kernel's long-sequence design (TMA,
+    wgmma), in place of the resident one up to T = 256;
+  - `long_expf`: the long-sequence design's exp as the plain version's
+    `expf`, in place of `ex2.approx` of (s - m) log2 e;
   - `f32_exp2f`: the f32 kernel's exp as the accurate `exp2f` in place of
     `ex2.approx`;
   - `f32_rows16`, `f32_rows32`: a warp takes 16 query rows at every T, or
@@ -21,8 +23,8 @@ differ in a line or two each:
 and `f32_scalar`, the scalar-FMA f32 kernel that K1 ran in f32 before the
 3xTF32 one (two passes, 4 threads a query row, 32-key tiles; its own
 source, `SCALAR_F32_SOURCE`). Then, at the flagship's attention shapes
-(8, 64, 8, 64) and (8, 256, 8, 64) and the latent U-Net's (8, 1024, 8, 32)
-in bf16, and at the five f32 shapes of the paths (the flagship's two, the
+(8, 64, 8, 64) and (8, 256, 8, 64), the latent U-Net's (8, 1024, 8, 32) and
+Stable Diffusion's (8, 1024, 10, 64) and (8, 4096, 5, 64) in bf16, and at the five f32 shapes of the paths (the flagship's two, the
 latent U-Net's three), it times the kernel, each copy of its dtype, the
 plain version and SDPA (device ms per call from CUDA graphs, TF32 off) and
 holds each to the plain version with the card check of
@@ -47,17 +49,21 @@ from ..ops import attention as attn
 from . import kernel_check as kc
 from ._bench import card, resolve_device, time_s_graph
 
-SHAPES = ((8, 64, 8, 64), (8, 256, 8, 64), (8, 1024, 8, 32))
+SHAPES = ((8, 64, 8, 64), (8, 256, 8, 64), (8, 1024, 8, 32), (8, 1024, 10, 64), (8, 4096, 5, 64))
 F32_SHAPES = ((8, 64, 8, 64), (8, 256, 8, 64), *kc.LATENT_ATTN_SHAPES)
 EXACT_EXP = "__device__ __forceinline__ float softmax_exp(float x) { return expf(x); }"
 APPROX_EXP = ('__device__ __forceinline__ float softmax_exp(float x) { float y; '
               'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f)); '
               'return y; }')
 WARPS = "constexpr int TC_WARPS = 4;"
+LONG_EXP = ("__device__ __forceinline__ float long_exp(float s, float m) "
+            "{ return sfu_exp2((s - m) * LOG2E); }")
 VARIANTS = {"ex2_approx": (EXACT_EXP, APPROX_EXP),
             "rows32": (WARPS, "constexpr int TC_WARPS = 2;"),
             "rows16": (WARPS, "constexpr int TC_WARPS = 1;"),
-            "streamed": ("constexpr int TC_RES_MAX_T = 256;", "constexpr int TC_RES_MAX_T = 0;")}
+            "streamed": ("constexpr int TC_RES_MAX_T = 256;", "constexpr int TC_RES_MAX_T = 0;"),
+            "long_expf": (LONG_EXP, "__device__ __forceinline__ float long_exp(float s, float m) "
+                                    "{ return expf(s - m); }")}
 MT2 = "constexpr int F32_MT2_MIN_T = 256;"
 F32_VARIANTS = {"f32_exp2f": ('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
                               "y = exp2f(x);"),

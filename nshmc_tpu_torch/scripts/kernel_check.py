@@ -14,7 +14,9 @@ checks, on seeded random inputs:
     (SD_ATTN_SITES: 5, 10, 20 and 20 heads of 64 at 4096, 1024, 256 and 64
     tokens), and edge shapes (2, T, 2, ch) for
     T in {1, 16, 100, 1000} and ch in {16, 32, 64}, in bf16 (the two-pass
-    tensor-core kernel) and f32 (the one-pass 3xTF32 tensor-core kernel);
+    tensor-core kernel: its resident design up to 256 tokens, its TMA and
+    wgmma design above, `attention.bf16_design`) and f32 (the one-pass
+    3xTF32 tensor-core kernel);
   - K2c, both of its designs (the one launch and the two-pass one, each
     called directly, whichever the wrapper would pick), at the flagship's 18
     GN+SiLU shapes (FLAGSHIP_GN_SITES) and at GN_SHAPES (smaller and ragged
@@ -397,7 +399,8 @@ def main() -> int:
     for shape in ATTN_SHAPES:
         for dt in (torch.bfloat16, torch.float32):
             res = attention_check(*qkv_inputs(shape, dt, gen, dev))
-            print(f"K1 {shape} {dt}: {attention_summary(res)}")
+            design = f" ({attn.bf16_design(shape[1])})" if dt == torch.bfloat16 else ""
+            print(f"K1 {shape} {dt}{design}: {attention_summary(res)}")
             bad += [] if res["ok"] else [("K1", shape, dt)]
     for shape in dict.fromkeys([*FLAGSHIP_GN_SITES, *GN_SHAPES]):
         for dt in (torch.bfloat16, torch.float32):

@@ -410,7 +410,7 @@ def test_launch_counters_advance(monkeypatch):
     before = launches.read()
     assert {"group_stats", "normalize_silu", "groupnorm_silu_backward", "launch_one",
             "launch_twopass", "attention_forward", "attn_fwd_tc_kernel",
-            "attn_fwd_f32_kernel"} == set(before)
+            "attn_fwd_f32_kernel", "attn_fwd_tc_long"} == set(before)
     launches.advance({k: i + 1 for i, k in enumerate(before)})
     moved = launches.since(before)
     try:
@@ -418,6 +418,8 @@ def test_launch_counters_advance(monkeypatch):
         assert groupnorm.channel_stats.launches == before["group_stats"] + 1
         assert attention.KERNEL_LAUNCHES[torch.float32].launches == \
             before["attn_fwd_f32_kernel"] + moved["attn_fwd_f32_kernel"]
+        assert attention.LONG_LAUNCHES.launches == \
+            before["attn_fwd_tc_long"] + moved["attn_fwd_tc_long"]
     finally:
         launches.advance({k: -n for k, n in moved.items()})
     assert launches.read() == before

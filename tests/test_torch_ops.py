@@ -146,11 +146,14 @@ def test_scale_shift_affine_matches_jax_resblock_out_norm():
 
 def test_cpu_takes_plain_path_and_counts_no_launch():
     counters = (attn_mod.attention_forward, *attn_mod.KERNEL_LAUNCHES.values(),
-                gn_mod.channel_stats, gn_mod.group_stats, gn_mod.normalize_silu)
+                attn_mod.LONG_LAUNCHES, gn_mod.channel_stats, gn_mod.group_stats,
+                gn_mod.normalize_silu)
     before = [f.launches for f in counters]
     q = torch.randn(1, 64, 2, 16)
     attn_mod.attention(q, q, q)
     attn_mod.attention(q.bfloat16(), q.bfloat16(), q.bfloat16())
+    q = torch.randn(1, 300, 1, 16).bfloat16()  # the long design's length
+    attn_mod.attention(q, q, q)
     gn_mod.groupnorm_silu(torch.randn(1, 4, 4, 32), torch.ones(32), torch.zeros(32))
     gn_mod.group_stats(torch.randn(1, 16, 32))
     assert [f.launches for f in counters] == before
