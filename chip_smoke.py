@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Chip smoke run of nshmc_tpu_torch on one NVIDIA GPU (written for an H100).
+"""Card check of nshmc_tpu_torch on one NVIDIA GPU (written for an H100).
 
-    python3 chip_smoke.py                  # needs one CUDA card
-    python3 chip_smoke.py --trace OUT_DIR  # profile one flagship and two latent evaluations
-    python3 chip_smoke.py --sd             # the build and phase 13 alone
+    python3 chip_smoke.py        # needs one CUDA card
+    python3 chip_smoke.py --sd   # the build and phase 13 alone
 
-It builds the port's kernels from the sources in this checkout and then:
+It checks; `benchmark/run.py` measures the paths end to end, under bounds,
+and profiles them with its trace option (README.md). The times taken here
+are each kernel's alone, beside its plain version, the closest library
+call and its bound. It builds the port's kernels from the sources in this
+checkout and then:
   1. holds the port's output against its plain-PyTorch path on the CPU on a
      small input (the tiny config's pixel loss and gradient, f32);
   2. drives the main path: the flagship pixel noise-space HMC through the
@@ -31,10 +34,10 @@ It builds the port's kernels from the sources in this checkout and then:
      K1 (bf16 on tensor cores; f32 on tensor cores in 3xTF32, its bound at
      495 / 3 TFLOP/s) also at edge shapes; K2a's one launch (sums, mean_c,
      inv_c) at every GN+SiLU and GroupNorm32 shape and GN_SHAPES in both
-     dtypes, two calls bit-identical, and the eps 1e-6 variance clip;
-     nshmc_tpu_torch.scripts.groupnorm_stats_variants times it beside the
-     Triton chain it replaced, P1's chain and torch.var_mean at every K2a
-     site of the three paths (CUDA graphs and eager); K2b on plain
+     dtypes, two calls bit-identical, and the eps 1e-6 variance clip; K2a
+     held and timed (CUDA graphs) beside its plain version and
+     torch.var_mean at every K2a site of the flagship (bf16) and of the
+     latent path (both dtypes, each site at its eps); K2b on plain
      statistics; and the GroupNorm+SiLU backward K2c in both dtypes
      and both affine forms, each of its two designs (one launch, two-pass),
      also at kernel_check.GN_SHAPES, each case called twice for
@@ -64,12 +67,12 @@ It builds the port's kernels from the sources in this checkout and then:
      its bf16 kernel only, the f32 run through the 3xTF32 kernel only, each
      kernel counted on its own), K2a at every GN+SiLU and GroupNorm32 site,
      K2b at every GN+SiLU site, K2c at the VQ decoder's 23 and at none of
-     the stop-gradded eps-net's, P1-P4 and the plain versions never; evals/s, peak
-     memory and useful TFLOP/s; (c) K1 at the latent U-Net's three shapes,
-     bf16 and f32, timed beside SDPA and the bound; (d) K2a/K2b/K2c at the
-     VQ decoder's sites, eps 1e-6 (K2a/K2b also at the U-Net's, K2a at the
-     GroupNorm32 sites), K2b and K2c timed in bf16 and f32, K2c beside the
-     F.group_norm + F.silu backward; (e) the
+     the stop-gradded eps-net's, P1-P4 and the plain versions never; (c) K1
+     at the latent U-Net's three shapes, bf16 and f32, timed beside SDPA and
+     the bound; (d) K2a/K2b/K2c at the VQ decoder's sites, eps 1e-6 (K2a/K2b
+     also at the U-Net's, K2a at the GroupNorm32 sites), K2b and K2c timed
+     in bf16 and f32 (K2a's times: phase 3's), K2c beside the F.group_norm
+     + F.silu backward; (e) the
      CLI, --algo hmc_latent, on configs/ffhq_latent.yaml in f32;
   8. the forward operators: (a) every degradation (OPERATOR_DEGS) built at
      256^2 on the card and on the CPU, H, H_pinv, Ht and the input gradient
@@ -78,8 +81,7 @@ It builds the port's kernels from the sources in this checkout and then:
      bf16, 8 chains) with sr4, deblur_aniso, phase_retrieval and
      deblur_nonlinear, every kernel count set to 0 just before and read
      just after: finite start and end energies, the main path's launches an
-     evaluation, the plain versions never; evals/s, peak memory and the
-     operator's own loss and gradient time; (c) the bkse KernelWizard at
+     evaluation, the plain versions never; (c) the bkse KernelWizard at
      its full config, random weights, batch 2 at 256^2, adapt_kernel and
      its input gradient card against CPU in f32 and f64 (the f32 gradient
      reported with the ReLU inputs whose sign rounding flips, the f64 one
@@ -87,7 +89,7 @@ It builds the port's kernels from the sources in this checkout and then:
   9. the rest of the noise-space samplers and solvers, on the main path's
      model and problem, every kernel count set to 0 just before each run
      and read just after (K1, K2a, K2b and K2c launched, every plain
-     version never, evals/s and peak memory printed beside the card):
+     version never):
      (a) mass-conditioned HMC, 4 attempts with chain 0 accepting every
      finite proposal, its mass update in [e^-1, e^1]; (b) dual averaging,
      2 rounds, the shared eps checked against the host's recursion on the
@@ -113,12 +115,11 @@ It builds the port's kernels from the sources in this checkout and then:
      the latent flagship in f32, every kernel count set to 0 just before
      each run and read just after: K1, K2a and K2b launched, K2c exactly
      where the algorithm differentiates a network (DPS, PiGDM, both
-     ReSamples), no plain version; wall s, network forwards and backwards,
-     peak memory, the branches taken, a finite output; (c) K1 f32 at the
-     latent U-Net's batch-1 shapes and K2a, K2b, K2c at its and the VQ
-     decoder's batch-1 f32 sites against their plain versions, each timed
-     at the U-Net's sites of C = 224 k; (d) the CLIs with --algo dps and
-     --algo resample;
+     ReSamples), no plain version; network forwards and backwards, the
+     branches taken, a finite output; (c) K1 f32 at the latent U-Net's
+     batch-1 shapes and K2a, K2b, K2c at its and the VQ decoder's batch-1
+     f32 sites against their plain versions, each timed at the U-Net's
+     sites of C = 224 k; (d) the CLIs with --algo dps and --algo resample;
  11. the remaining models and utilities: (a) the tiny DDPM, the tiny U-Net
      with a context (transformer_depth 2) and with class labels (forward
      and input gradient) and LPIPS at batch 2, f32, card against CPU (bar
@@ -127,13 +128,12 @@ It builds the port's kernels from the sources in this checkout and then:
      256^2, 8 chains, one warm-up and DDPM_EVALS energy+grad evaluations in
      bf16 and f32: K2a at every GN+SiLU and GroupNorm32 call, K2b and K2c
      at every GN+SiLU call (forward hooks), K1 and the plain versions never;
-     evals/s, peak memory, useful TFLOP/s (utils/profiling.compiled_flops);
      (c) configs/ffhq_latent.yaml's U-Net with context_dim 512 (a
      SpatialTransformer at each attention site) and an (8, 1, 512) context,
      forward and input gradient in f32 and bf16, the same holds; (d) the
      flagship U-Net with 1000 classes, one bf16 energy+grad evaluation
      whose launches are the main path's an evaluation (K1 12); (e)
-     LPIPS-VGG at (8, 256, 256, 3) timed, against the CPU at batch 2, and
+     LPIPS-VGG at (8, 256, 256, 3) finite, against the CPU at batch 2, and
      the pixel CLI with local random LPIPS weights (its record holds
      lpips); (f) K2a, K2b, K2c against their plain versions at every DDPM
      site shape at eps 1e-6, both dtypes, K2c's picked design timed;
@@ -146,12 +146,12 @@ It builds the port's kernels from the sources in this checkout and then:
      clear of the bf16 noise, moved states within DISPLACEMENT_TOL of their
      displacement (phase 9(d)'s hold), each rank's K1, K2a, K2b and K2c
      counts set to 0 just before and read just after (each equal to the
-     unsharded run's, no plain version), evals/s and peak memory of each rank and of the
-     unsharded run; (b) the CLI, --algo hmc --mesh 2 --chains 8 on
-     configs/ffhq.yaml, one image: one metrics row, one summary line (the
-     primary's), the artifacts once; (c) --algo ddnm over two images, data
-     sharded: rank i takes image i, both rows gathered in idx order; (d)
-     --algo hmc_latent --mesh 2 --chains 8 on configs/ffhq_latent.yaml.
+     unsharded run's, no plain version); (b) the CLI, --algo hmc --mesh 2
+     --chains 8 on configs/ffhq.yaml, one image: one metrics row, one
+     summary line (the primary's), the artifacts once; (c) --algo ddnm over
+     two images, data sharded: rank i takes image i, both rows gathered in
+     idx order; (d) --algo hmc_latent --mesh 2 --chains 8 on
+     configs/ffhq_latent.yaml.
      Two ranks on one card measure oversubscription, not scaling.
  13. Stable Diffusion 2.1-base (configs/sd21_base_latent.yaml, bf16, seeded
      weights and context, 8 chains at 512^2; `phase_sd`): K1 at its four
@@ -162,12 +162,7 @@ It builds the port's kernels from the sources in this checkout and then:
      against the wrappers' counters.
 Every phase that fails ends the run with a nonzero exit code. The last lines
 are the kernels' JSON record, the card's name and power limit, and
-{"ok": true, "device": {...}}. With --trace, one flagship evaluation, one
-with each of sr4 and phase_retrieval (and the operator's own loss and
-gradient alone), and one latent flagship evaluation in bf16 and in f32 are
-profiled (OUT_DIR/trace_main_path.json, trace_operator_sr4.json,
-trace_operator_phase_retrieval.json, trace_latent_path.json,
-trace_latent_f32_path.json) and nothing else runs.
+{"ok": true, "device": {...}}.
 """
 import contextlib
 import dataclasses
@@ -209,7 +204,6 @@ GN_BWD_OPS = 40  # fp32 operations per element of the GN+SiLU backward (~20 for 
 DEVICE_KERNELS = {"attention": ("attn_fwd_tc_kernel", True),
                   "attention_f32": ("attn_fwd_f32_kernel", True),
                   "gn_stats": ("gn_stats_kernel", True),
-                  "gn_stats_triton_chain": ("stats_kernel", False),
                   "gn_apply": ("apply_kernel", False),
                   "gn_backward": ("gn_bwd_fused_kernel", True),
                   "gn_backward_twopass": ("gn_bwd_finish_kernel", True),
@@ -227,13 +221,6 @@ def fail(msg):
 def check(ok, msg):
     if not ok:
         fail(msg)
-
-
-def gpu_name_and_power():
-    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                        "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(r.returncode == 0, f"nvidia-smi: {r.stderr}")
-    return r.stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -442,41 +429,6 @@ def attention_case(torch, attn, kc, shape, dt, g, dev):
                 dtype=dname)
 
 
-def device_ms(events):
-    """The device ms of a profile's `key_averages()`: the sum over the
-    kernels' own rows (the operator rows repeat their kernels' time)."""
-    from torch.autograd import DeviceType
-
-    dev_time = lambda e: getattr(e, "self_device_time_total", None) or \
-        getattr(e, "self_cuda_time_total", 0)
-    return sum(dev_time(e) for e in events if e.device_type == DeviceType.CUDA) / 1e3
-
-
-def trace_eval(torch, engine, loss_fn, x, out_dir, name="main_path", what="flagship"):
-    """`chip_smoke.py --trace OUT_DIR`: profile one energy+grad evaluation
-    (after one untimed) with torch.profiler; print the kernels by device
-    time and the busy share of the device, and write a Chrome trace to
-    OUT_DIR/trace_{name}.json. Returns the device busy ms."""
-    from torch.profiler import ProfilerActivity, profile
-
-    engine.value_and_grad(loss_fn, x)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        engine.value_and_grad(loss_fn, x)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_us = 1e3 * device_ms(events)
-    print(f"trace: one {what} energy+grad eval, {x.shape[0]} chains: wall {wall * 1e3:.1f} ms, "
-          f"device busy {busy_us / 1e3:.1f} ms ({100 * busy_us / 1e6 / wall:.1f}% of wall)")
-    print(events.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=70))
-    print(events.table(sort_by="self_cpu_time_total", row_limit=25, max_name_column_width=70))
-    os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, f"trace_{name}.json"))
-    return busy_us / 1e3
-
-
 def phase_probes(torch, shape):
     """Phase 6: the memory-system probe path at `shape` (B, R, C) bf16 and
     the GroupNorm microbench. Returns {kernel: record} for P1-P4, with the
@@ -485,7 +437,6 @@ def phase_probes(torch, shape):
     from nshmc_tpu_torch.ops import stream_probe as sp
     from nshmc_tpu_torch.scripts import membench2, stream_probe
 
-    t0 = time.time()
     x, scale, bias = stream_probe.make_inputs(shape)
     checks = stream_probe.check_kernels(x, scale, bias)
     for name, res in checks.items():
@@ -541,7 +492,6 @@ def phase_probes(torch, shape):
     bench = membench2.main([str(b), str(math.isqrt(r)), str(c), str(MEMBENCH_ITERS)])
     check(all(v["s_per_iter"] for v in bench["cases"].values()),
           "GroupNorm microbench left a case untimed")
-    print(f"phase 6 (stream probe + GroupNorm microbench) took {time.time() - t0:.1f} s")
     return records
 
 
@@ -549,9 +499,6 @@ def phase_probes(torch, shape):
 
 LATENT_CFG = os.path.join(ROOT, "configs", "ffhq_latent.yaml")
 LATENT_TINY_CFG = os.path.join(ROOT, "configs", "tiny_latent_test.yaml")
-# useful TFLOP of one batch-8 latent energy+grad evaluation, stop-grad eps-net
-# (scripts/useful_flops_latent.json, a count that does not depend on the hardware)
-LATENT_USEFUL_TFLOP = 15.863
 CODE_FLIP_BOUND = 0.01  # share of quantizer codes that may differ, card vs CPU (near ties)
 
 
@@ -650,7 +597,7 @@ def latent_finite_or_fail(torch, p, z):
          f"loss {loss.tolist()}, gradient finite {bool(torch.isfinite(grad).all())}")
 
 
-def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, dtype=None):
+def phase_latent_flagship(torch, np, kc, gn, counters, dtype=None):
     """(b) The latent flagship: configs/ffhq_latent.yaml at full width, in
     `dtype` (bf16; f32 is the latent CLI's type), random weights from seed 0,
     92% random inpainting at 256^2, 3-step DDIM, 8 chains, MH attempts at
@@ -661,15 +608,13 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
     every finite proposal and the run reaches the geometric sigma update,
     the post-anneal pin of (tau, eps) and the sample ring. In f32, 2 anneal
     attempts, under torch's default TF32 settings (cuDNN convolutions in
-    TF32, matmuls not), as the CLI runs. With `trace_dir`, profiles one
-    evaluation instead and returns its device busy ms."""
+    TF32, matmuls not), as the CLI runs."""
     from nshmc_tpu_torch.hmc import latent
 
     dev = torch.device("cuda")
     dtype = dtype or torch.bfloat16
     f32 = dtype == torch.float32
     dname = str(dtype).split(".")[1]
-    t0 = time.time()
     p = latent_problem(torch, np, LATENT_CFG, dtype, dev)
     from nshmc_tpu_torch.models.unet import AttentionBlock
 
@@ -683,7 +628,6 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
             latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
                                    sampling=1, keep_samples=1))
     state = latent.init_latent_chains(hcfg, CHAINS, p.z_shape, dev, z=p.z_t)
-    print(f"latent flagship ({dname}) built in {time.time() - t0:.1f} s")
     with torch.no_grad():  # the shapes each kernel sees, by forward hooks
         unet_gn, unet_attn, unet_norm = kc.count_sites(p.ldm.unet, lambda: p.ldm.unet(
             state.z, torch.full((CHAINS,), 500.0, device=dev)))
@@ -705,10 +649,6 @@ def phase_latent_flagship(torch, np, engine, kc, gn, counters, trace_dir=None, d
         loss0 = latent_finite_or_fail(torch, p, state.z)
         print(f"latent energy ({dname}) at the start state finite: data loss "
               f"{[round(v, 1) for v in loss0.tolist()]}")
-        if trace_dir is not None:
-            return trace_eval(torch, engine, p.loss_fn, state.z, trace_dir,
-                              "latent_path" if not f32 else "latent_f32_path",
-                              f"latent flagship {dname}")
         return latent_run(torch, kc, gn, p, hcfg, state, counters, dtype,
                           (n_unet_gn, n_attn, n_dec_gn, n_unet_norm, n_dec_norm))
     finally:
@@ -729,35 +669,25 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
     itemsize = torch.empty((), dtype=dtype).element_size()
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    round_s, ring = [], {}
+    ring = {}
 
-    def timed(states, rnd):
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter())
+    def keep_z0(states, rnd):
         if rnd == 1:  # the z0 the ring must hold after the last post-anneal accept
             ring["z0"] = states.last_z0_accept[0].clone()
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     # the engine's own draws, but chain 0 accepts; the eps-net ladder replays
     # the decoder's CUDA graphs after its first calls, so the launches are
     # read from a device trace
     with plain_calls() as plain, device_launches(torch) as launches:
         out = latent.run_latent_hmc(p.loss_fn, hcfg, state, p.gen, draws=accepting_draws(
-            engine, [p.gen], state.z, hcfg.total_attempts, [0]), callback=timed)
+            engine, [p.gen], state.z, hcfg.total_attempts, [0]), callback=keep_z0)
     twopass_parts = launches.pop("gn_backward_twopass_parts")
     wrappers = {k: f.launches for k, f in counters.items()}  # as the replays advance them
     bwd_calls = gn.groupnorm_silu_backward.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = hcfg.n_leapfrog + 1
     n_evals = evals * hcfg.total_attempts
-    steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
-    evals_per_s = evals * len(steps[1:]) / sum(steps[1:])
-    print(f"latent path ({dname}): {len(steps)} MH attempts x {evals} energy+grad evals, "
-          f"{CHAINS} chains; attempt times {[round(v, 3) for v in steps]} s; {evals_per_s:.3f} "
-          f"energy+grad evals/s (attempts 2+), useful {LATENT_USEFUL_TFLOP * evals_per_s:.1f} "
-          f"TFLOP/s; peak memory {peak_gb:.2f} GB")
+    print(f"latent path ({dname}): {hcfg.total_attempts} MH attempts x {evals} energy+grad "
+          f"evals, {CHAINS} chains")
     print(f"latent path ({dname}) kernel launches on the card (device trace): {launches}; "
           f"GN+SiLU backward calls "
           f"{bwd_calls} (per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} })")
@@ -799,9 +729,8 @@ def latent_run(torch, kc, gn, p, hcfg, state, counters, dtype, sites):
           f"{out.n_kept.tolist()}, tau {[round(v, 4) for v in out.tau.tolist()]}, sigma_y "
           f"{[round(v, 4) for v in out.sigma_y.tolist()]}, last loss "
           f"{[round(v, 1) for v in out.last_loss.tolist()]}")
-    return dict(launches=launches, evals_per_s=evals_per_s, peak_gb=peak_gb,
-                useful_tflops=LATENT_USEFUL_TFLOP * evals_per_s, n_leapfrog=hcfg.n_leapfrog,
-                attempts=hcfg.total_attempts, attempt_s=steps, dtype=dname)
+    return dict(launches=launches, n_leapfrog=hcfg.n_leapfrog, attempts=hcfg.total_attempts,
+                dtype=dname)
 
 
 def phase_latent_kernels(torch, attn, gn, kc, stats_records):
@@ -812,8 +741,7 @@ def phase_latent_kernels(torch, attn, gn, kc, stats_records):
     K2a and K2b also at the latent U-Net's sites and K2a at the GroupNorm32
     sites, each against its plain version; K1 and the VQ decoder's K2b and
     K2c timed in both dtypes, K2a's times taken from `stats_records` (phase
-    3's groupnorm_stats_variants run) at every latent site. Returns
-    {kernel: [records]}."""
+    3's K2a loop) at every latent site. Returns {kernel: [records]}."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED + 5)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -863,7 +791,7 @@ def phase_latent_kernels(torch, attn, gn, kc, stats_records):
             st = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
             check(st["ok"], f"K2a GroupNorm32 site {shape} {dt} eps {eps:g}: "
                             f"{kc.stats_summary(st)}")
-    out["gn_stats"] = [stats_record(v) for v in stats_records if v["path"] == "latent"]
+    out["gn_stats"] = [v for v in stats_records if v["path"] == "latent"]
     print(f"K2 at the latent sites agree (eps 1e-6 at the VQ decoder's, 1e-5 at the U-Net's; "
           f"K2a also at the GroupNorm32 sites, two calls bit-identical): "
           f"apply worst abs err {worst}; K2c at every VQ decoder site, each design that can "
@@ -871,18 +799,44 @@ def phase_latent_kernels(torch, attn, gn, kc, stats_records):
     return out
 
 
-def stats_record(v):
-    """A groupnorm_stats_variants record as a K2a record of the kernels
-    line: the one launch's device ms (CUDA graphs) and eager ms, its plain
-    version's, `torch.var_mean`'s (library) and the Triton chain's it
-    replaced (earlier), and the bound from the record's shape."""
-    b, r, cc = v["shape"]
-    n, es = b * r * cc, 2 if v["dtype"] == "bfloat16" else 4
-    bms, by = bound_ms(n * es + b * 4 * cc * 4, 3 * n, "float32")
-    return dict(shape=v["shape"], dtype=v["dtype"], eps=v["eps"], ms=v["new_ms"],
-                eager_ms=v["new_eager_ms"], plain_ms=v["plain_ms"], library_ms=v["var_mean_ms"],
-                earlier_ms=v["triton_chain_ms"], earlier_eager_ms=v["triton_chain_eager_ms"],
-                bound_ms=bms, bound_by=by)
+def gn_stats_times(torch, gn, x, eps, where):
+    """K2a's launch at x (B, R, C): device ms from CUDA graphs beside its
+    plain version's and `torch.var_mean`'s (per channel, no group
+    combine), and the bound."""
+    b, r, cc = x.shape
+    n = b * r * cc
+    ms = time_ms_graph(lambda: gn.group_stats(x, gn.NUM_GROUPS, eps))
+    plain = time_ms_graph(lambda: gn.group_stats_plain(x, gn.NUM_GROUPS, eps))
+    lib = time_ms_graph(lambda: torch.var_mean(x, dim=1, correction=0))
+    bms, by = bound_ms(n * x.element_size() + b * 4 * cc * 4, 3 * n, "float32")
+    dname = str(x.dtype).split(".")[1]
+    print(f"K2a {tuple(x.shape)} {dname} ({where}): kernel {ms:.4f} ms (CUDA graphs), plain "
+          f"{plain:.4f}, var_mean {lib:.4f}, bound {bms:.4f} ({by}), {100 * bms / ms:.0f}% of "
+          f"bound")
+    return dict(shape=list(x.shape), dtype=dname, eps=eps, ms=ms, plain_ms=plain,
+                library_ms=lib, bound_ms=bms, bound_by=by)
+
+
+def k2a_sites(torch, gn, kc, dev):
+    """K2a at every K2a site of the flagship (bf16, eps 1e-5) and of the
+    latent path (the VQ decoder's at eps 1e-6, the latent U-Net's at 1e-5;
+    bf16 and f32), each held to its plain version (kernel_check's
+    gn_stats_check) and timed (`gn_stats_times`). Returns [record], each
+    with its path."""
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    flagship = [*kc.FLAGSHIP_GN_SITES, *kc.FLAGSHIP_NORM_SITES]
+    latent = ([(s_, 1e-6) for s_ in [*kc.VQ_DECODER_GN_SITES, *kc.VQ_DECODER_NORM_SITES]]
+              + [(s_, 1e-5) for s_ in [*kc.LATENT_UNET_GN_SITES, *kc.LATENT_UNET_NORM_SITES]])
+    cases = [("flagship", s_, torch.bfloat16, gn.EPS) for s_ in dict.fromkeys(flagship)]
+    for dt in (torch.bfloat16, torch.float32):
+        cases += [("latent", s_, dt, eps) for s_, eps in dict.fromkeys(latent)]
+    records = []
+    for path, shape, dt, eps in cases:
+        x = (1.5 * torch.randn(shape, generator=g, device=dev) + 0.3).to(dt)
+        res = kc.gn_stats_check(x, gn.NUM_GROUPS, eps, g)
+        check(res["ok"], f"K2a {path} site {shape} {dt} eps {eps:g}: {kc.stats_summary(res)}")
+        records.append({"path": path, **gn_stats_times(torch, gn, x, eps, f"{path} site")})
+    return records
 
 
 def gn_apply_times(torch, gn, x, eps, where="VQ decoder site"):
@@ -950,7 +904,6 @@ def phase_latent_cli(np):
                "--chains", "2", "--tau", "0.1", "--epsilon", "0.05", "--latent_epochs", "1",
                "--latent_sampling", "1", "--verbose", "--data_path", data,
                "-i", os.path.join(tmp, "out")]
-        t0 = time.time()
         r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         lines = r.stdout.strip().splitlines()
         check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
@@ -961,8 +914,8 @@ def phase_latent_cli(np):
             check(os.path.exists(os.path.join(tmp, "out", f)), f"latent CLI did not write {f}")
         attempts = [x for x in lines if x.strip().startswith("attempt ")]
         check(len(attempts) == 3, f"latent CLI ran {len(attempts)} attempts, 3 expected")
-        print(f"latent CLI (configs/ffhq_latent.yaml, f32, 2 chains, cuda) in "
-              f"{time.time() - t0:.1f} s: {attempts[-1].strip()}; {lines[-1]}")
+        print(f"latent CLI (configs/ffhq_latent.yaml, f32, 2 chains, cuda): "
+              f"{attempts[-1].strip()}; {lines[-1]}")
 
 
 # ---- 8. the forward operators --------------------------------------------------------------
@@ -970,7 +923,6 @@ def phase_latent_cli(np):
 OPERATOR_DEGS = ("sr4", "sr16", "sr_bicubic4", "inpaint_box", "deblur_gauss", "deblur_aniso",
                  "cs2", "color", "denoise", "hdr", "phase_retrieval", "deblur_nonlinear")
 OPERATOR_MH_DEGS = ("sr4", "deblur_aniso", "phase_retrieval", "deblur_nonlinear")
-OPERATOR_TRACE_DEGS = ("sr4", "phase_retrieval")
 # card against CPU, the CPU tests' tolerances (tests/_torch_operator_parity.py):
 # max |card - cpu| <= tol * max |cpu| for the maps; gathers and the HDR clip
 # exact, f32 products and the Walsh-Hadamard ladder 1e-5, FFTs 1e-4; every
@@ -1030,7 +982,7 @@ def phase_operators_card_vs_cpu(torch, np, build_operator, d, c):
 def operator_problem(torch, np, engine, decode, deg, x_orig, d, c, hcfg):
     """The flagship's HMC problem with degradation `deg`: the operator on
     the card, y0 = H(x) + sigma_0 noise and x_T drawn on the host as the CLI
-    draws them, the pixel loss and the chains."""
+    draws them: (the operator, the pixel loss, the chains, the generator)."""
     from nshmc_tpu_torch.cli import host_randn, image_generators
     from nshmc_tpu_torch.operators import build_operator
 
@@ -1043,29 +995,7 @@ def operator_problem(torch, np, engine, decode, deg, x_orig, d, c, hcfg):
     loss_fn = engine.make_pixel_loss_fn(decode, op, y0[0])
     state = engine.init_chains(hcfg, CHAINS, (d, d, c), dev,
                                x=host_randn((CHAINS, d, d, c), host, dev))
-    return op, y0, loss_fn, state, gen
-
-
-def operator_eval(torch, op, y0, x0):
-    """One evaluation's work of the operator alone: ||y0 - H(x0)||^2 and
-    its input gradient at the flagship's 8 decoded images (f32)."""
-    def run():
-        xg = x0.detach().requires_grad_(True)
-        torch.autograd.grad(((y0 - op.H_img(xg)) ** 2).sum(), xg)
-    return run
-
-
-def profiled_device_ms(torch, fn):
-    """Device ms of one call of fn() (after one untimed) under torch.profiler:
-    the sum of its CUDA kernels' device time."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return device_ms(prof.key_averages())
+    return op, loss_fn, state, gen
 
 
 def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts, x_orig, d,
@@ -1080,8 +1010,8 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
     evals = hcfg.n_leapfrog + 1
     out = {}
     for deg in OPERATOR_MH_DEGS:
-        op, y0, loss_fn, state, gen = operator_problem(torch, np, engine, decode, deg, x_orig,
-                                                       d, c, hcfg)
+        op, loss_fn, state, gen = operator_problem(torch, np, engine, decode, deg, x_orig,
+                                                   d, c, hcfg)
         seen = []
 
         def recorded(x):
@@ -1091,16 +1021,10 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
 
         for f in (*counters.values(), gn.groupnorm_silu_backward):
             f.launches = 0
-        torch.cuda.synchronize()
-        base_gb = torch.cuda.memory_allocated() / 1e9
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         # the decoder's first calls run eagerly, then it replays its CUDA
         # graphs: the launches are read from a device trace
         with plain_calls() as plain, device_launches(torch) as launches:
             new, log_ratio = engine.hmc_attempt(recorded, hcfg, state, gen)
-        dt = time.perf_counter() - t0
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches.pop("gn_backward_twopass_parts")
         check(launches == {k: f.launches for k, f in counters.items()},
               f"{deg}: the wrappers' counters are not the card's launches {launches}")
@@ -1117,45 +1041,19 @@ def phase_operator_attempts(torch, np, engine, gn, decode, counters, main_counts
                   f"path {main_launches[k] / main_evals}")
         check(gn.groupnorm_silu_backward.launches == launches["gn_backward"]
               + launches["gn_backward_twopass"], f"{deg}: K2c calls and launches disagree")
-        with torch.no_grad():
-            x0 = decode(state.x)
-        op_ms = time_ms(operator_eval(torch, op, y0, x0), iters=10, warmup=2)
-        rec = dict(evals_per_s=evals / dt, attempt_s=dt, peak_memory_gb=peak_gb,
-                   allocated_before_gb=base_gb,
-                   operator_eager_ms=op_ms, launches_per_eval={k: v / evals
-                                                               for k, v in launches.items()},
+        rec = dict(launches_per_eval={k: v / evals for k, v in launches.items()},
                    data_loss_start=start.tolist(), data_loss_end=end.tolist(),
                    accepted=new.accepted.tolist(), n_leapfrog=hcfg.n_leapfrog, chains=CHAINS,
                    dtype="bfloat16", operator=type(op).__name__)
         print(f"operator {deg} ({type(op).__name__}): 1 MH attempt x {evals} energy+grad evals, "
-              f"{CHAINS} chains, bf16: {dt:.3f} s, {rec['evals_per_s']:.3f} evals/s (first "
-              f"attempt of this operator), peak memory {peak_gb:.2f} GB ({base_gb:.2f} allocated "
-              f"before it); data loss start "
+              f"{CHAINS} chains, bf16: data loss start "
               f"{[round(v, 1) for v in start.tolist()]}, end "
               f"{[round(v, 1) for v in end.tolist()]}, accepted {new.accepted.tolist()}; "
               f"launches an eval equal the main path's "
-              f"{ {k: v / evals for k, v in launches.items() if v} }; the operator's loss and "
-              f"input gradient alone {op_ms:.3f} ms an evaluation (CUDA events, host included)")
+              f"{ {k: v / evals for k, v in launches.items() if v} }")
         out[deg] = rec
-        del op, y0, loss_fn, state, new, x0
+        del op, loss_fn, state, new
     return out
-
-
-def trace_operators(torch, np, engine, decode, x_orig, d, c, hcfg, trace_dir):
-    """`--trace`: one flagship evaluation with each degradation of
-    OPERATOR_TRACE_DEGS under the profiler (device busy ms, a Chrome trace
-    OUT_DIR/trace_operator_{deg}.json), and the operator's own device ms an
-    evaluation: its loss and input gradient alone, profiled."""
-    for deg in OPERATOR_TRACE_DEGS:
-        op, y0, loss_fn, state, _ = operator_problem(torch, np, engine, decode, deg, x_orig,
-                                                     d, c, hcfg)
-        busy = trace_eval(torch, engine, loss_fn, state.x, trace_dir, f"operator_{deg}",
-                          f"flagship with {deg}")
-        with torch.no_grad():
-            x0 = decode(state.x)
-        own = profiled_device_ms(torch, operator_eval(torch, op, y0, x0))
-        print(f"operator {deg}: device busy {busy:.2f} ms an evaluation, the operator's own "
-              f"device time {own:.3f} ms an evaluation ({100 * own / busy:.2f}% of it)")
 
 
 def kink_signs(torch, net, store):
@@ -1188,7 +1086,6 @@ def phase_kernel_wizard(torch, np):
     from nshmc_tpu_torch.models.kernel_wizard import KernelWizard, KernelWizardConfig
     from nshmc_tpu_torch.operators.nonlinear_blur import init_like_flax
 
-    t0 = time.time()
     cfg = KernelWizardConfig()
     net = KernelWizard(cfg).eval().requires_grad_(False)
     init_like_flax(net, torch.Generator().manual_seed(SEED + 7))
@@ -1241,8 +1138,8 @@ def phase_kernel_wizard(torch, np):
         if dtype == torch.float64:
             check(grad_excess <= NET_ATOL, f"KernelWizard f64 input gradient disagrees with "
                                            f"the CPU: {rec[dname]}")
-    print(f"bkse KernelWizard phase took {time.time() - t0:.1f} s (held: f32 forward, f64 "
-          f"forward and gradient, atol {NET_ATOL} + rtol {NET_RTOL})")
+    print(f"bkse KernelWizard held: f32 forward, f64 forward and gradient, atol {NET_ATOL} + "
+          f"rtol {NET_RTOL}")
     del net
     return rec
 
@@ -1263,7 +1160,6 @@ def phase_cli(np, d, deg):
                "--algo", "hmc", "--deg", deg, "--chains", "2", "--tau", "0.1",
                "--epsilon", "0.05", "--hmc_epochs", "1", "--hmc_sampling", "1",
                "--data_path", data, "-i", os.path.join(tmp, "out")]
-        t0 = time.time()
         r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         lines = r.stdout.strip().splitlines()
         check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
@@ -1273,8 +1169,7 @@ def phase_cli(np, d, deg):
         check(math.isfinite(summary.get("psnr", float("nan"))), f"CLI summary {summary}")
         for f in ("0.png", "orig_0.png", "y0_0.png", "std_dev_map_0.png", "metrics.jsonl"):
             check(os.path.exists(os.path.join(tmp, "out", f)), f"CLI --deg {deg} did not write {f}")
-        print(f"CLI --deg {deg} (configs/ffhq.yaml, 2 chains, cuda) in {time.time() - t0:.1f} s: "
-              f"{lines[-1]}")
+        print(f"CLI --deg {deg} (configs/ffhq.yaml, 2 chains, cuda): {lines[-1]}")
 
 
 # ---- 9. the rest of the noise-space samplers and solvers ---------------------------------------
@@ -1332,25 +1227,23 @@ class Phase9:
         x = host_randn((n_chains, self.d, self.d, self.c), host, self.dev)
         return op, y0, x, gen
 
-    def run(self, label, fn, evals, k1="attention", root=None):
+    def run(self, label, fn, k1="attention", root=None):
         """fn() with every count set to 0 just before and read just after: K1
         (`k1`, its bf16 or f32 kernel) launched, K2a, K2b and K2c launched, no
         other kernel and no plain version at all. With `root` (a model whose
         modules the hooks count), K2a once for each GN+SiLU and GroupNorm32
         call, K2b once for each GN+SiLU call and K2c only by a design that
-        bwd_design picks at a shape the run saw. `evals`: the run's
-        energy+grad evaluations (or solver steps). Returns fn()'s result."""
+        bwd_design picks at a shape the run saw. The run's peak memory goes
+        into its record, for (d)'s waves. Returns fn()'s result."""
         torch, gn = self.torch, self.gn
         for f in (*self.counters.values(), gn.groupnorm_silu_backward):
             f.launches = 0
         torch.cuda.synchronize()
-        base_gb = torch.cuda.memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
         box = {}
         # without hooks a decoder replays its CUDA graphs, which no wrapper
         # sees: such a run's launches are read from a device trace
         on_card = device_launches(torch) if root is None else contextlib.nullcontext()
-        t0 = time.perf_counter()
         with plain_calls() as plain, on_card as traced:
             if root is not None:
                 gn_calls, _, norm_calls = self.kc.count_sites(
@@ -1358,7 +1251,6 @@ class Phase9:
             else:
                 box["out"] = fn()
             torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = {k: f.launches for k, f in self.counters.items()}
         if traced is not None:
@@ -1383,14 +1275,9 @@ class Phase9:
         for k, v in launches.items():
             if k not in allowed:
                 check(v == 0, f"{label}: kernel {k} launched {v} times, where no shape takes it")
-        rec = dict(s=dt, evals=evals, evals_per_s=evals / dt, peak_memory_gb=peak_gb,
-                   allocated_before_gb=base_gb, launches=launches, card=self.card)
-        self.records[label] = rec
-        print(f"phase 9 {label}: {dt:.3f} s, {evals} energy+grad evals (or steps), "
-              f"{rec['evals_per_s']:.3f} a second, peak memory {peak_gb:.2f} GB ({base_gb:.2f} "
-              f"allocated before); launches { {k: v for k, v in launches.items() if v} }; "
-              f"plain versions 0 "
-              f"({', '.join(sorted(plain))}); {self.card}")
+        self.records[label] = dict(peak_memory_gb=peak_gb, launches=launches, card=self.card)
+        print(f"phase 9 {label}: launches { {k: v for k, v in launches.items() if v} }; "
+              f"plain versions 0 ({', '.join(sorted(plain))}); {self.card}")
         return box["out"]
 
 
@@ -1558,7 +1445,6 @@ def batch_gap_causes(p, decode32, x16):
     for name, swaps in settings.items():
         for f in (*p.counters.values(), gn.groupnorm_silu_backward):
             f.launches = 0
-        t0 = time.perf_counter()
         with swapped(*swaps):
             gaps[name] = gradient_gap(p, loss16, x16)
             torch.cuda.synchronize()
@@ -1568,7 +1454,7 @@ def batch_gap_causes(p, decode32, x16):
         print(f"  (d) bf16 gradient gap, batch 16 against 2 x 8, {name}: "
               f"{min(gaps[name]):.2e}-{max(gaps[name]):.2e} of its norm, "
               f"{sum(v > 0.01 for v in gaps[name])} of {len(gaps[name])} chains over 1% "
-              f"({launched} kernel launches, {time.perf_counter() - t0:.1f} s)")
+              f"({launched} kernel launches)")
     gaps["float32 kernels, cuDNN"] = gradient_gap(p, loss32, x16)
     g_bf16 = torch.cat([engine.value_and_grad(loss16, x16[a:a + CHAINS])[2] for a in (0, CHAINS)])
     g_f32 = torch.cat([engine.value_and_grad(loss32, x16[a:a + CHAINS])[2] for a in (0, CHAINS)])
@@ -1588,14 +1474,14 @@ def batch_invariance(p, model32, decode32):
     states within DISPLACEMENT_TOL; then (d) in f32: every decision equal,
     max |dx| within F32_WAVES_X_TOL of max |x|."""
     torch, engine = p.torch, p.engine
-    shape, evals = (p.d, p.d, p.c), 21
+    shape = (p.d, p.d, p.c)
     one = engine.HMCConfig(sigma_0=p.sigma_0, tau=1.0, epsilon=0.05, epochs=1, sampling=1,
                            max_attempts=1)
 
     def recorded(label, fn, **run_kw):
         log = []
         with swapped(recording_propose(engine, log)):
-            out = p.run(label, fn, evals, **run_kw)
+            out = p.run(label, fn, **run_kw)
         return out, clear_decisions(torch, log)
 
     def waves(label, decode, chunk, **run_kw):
@@ -1654,7 +1540,7 @@ def batch_invariance(p, model32, decode32):
           f"(tolerance {F32_WAVES_X_TOL})")
 
 
-def phase_noise_space(p, hcfg_main):
+def phase_noise_space(p):
     """Phase 9: (a) --algo hmc_cond, (b) --adapt da, (c) snapshot and resume,
     the kernels at batches 16 and 1 and the batch-16 gradient gap, (d) chain
     waves (bf16, f32) and BASELINE config 4's 64 phase-retrieval chains, (e)
@@ -1665,8 +1551,6 @@ def phase_noise_space(p, hcfg_main):
     from nshmc_tpu_torch.hmc import adaptation
     from nshmc_tpu_torch.solvers import dmplug
 
-    t_phase = time.time()
-    evals = hcfg_main.n_leapfrog + 1
     shape = (p.d, p.d, p.c)
 
     # (a) mass-conditioned HMC: chain 0 accepts every finite proposal, so its
@@ -1678,7 +1562,7 @@ def phase_noise_space(p, hcfg_main):
     state = adaptation.init_conditioned_chains(ccfg, CHAINS, shape, p.dev, x=x)
     out = p.run("(a) hmc_cond", lambda: adaptation.run_conditioned_hmc(
         loss_fn, ccfg, state, gen, draws=accepting_draws(engine, [gen], x, 4, [0])),
-        4 * evals, root=p.model)
+        root=p.model)
     m0 = out.mass_diag[0]
     k = ccfg.mass_k
     check(int(out.attempts.min()) == 4 and int(out.accepted[0]) == 4,
@@ -1702,7 +1586,7 @@ def phase_noise_space(p, hcfg_main):
         loss_fn, dcfg, state, generator=gen, draws=accepting_draws(engine, [gen], x, 2, EVEN),
         callback=lambda s, d_, r: rounds.append((s.accepted.clone(), s.rejected.clone(),
                                                  s.epsilon.clone(), float(d_.log_eps)))),
-        2 * evals, root=p.model)
+        root=p.model)
     # the host's recursion, float32 numpy, from the measured acceptance
     f = np.float32
     h_sum, mu, prev_acc = f(0.0), f(math.log(10.0 * 0.05)), torch.zeros_like(state.accepted)
@@ -1732,11 +1616,11 @@ def phase_noise_space(p, hcfg_main):
                             max_attempts=2)
     fresh = lambda: engine.init_chains(rcfg, CHAINS, shape, p.dev, x=x)
 
-    def resume_run(label, attempts, gen_, ck="", ran=None):  # ran: the attempts it runs
+    def resume_run(label, attempts, gen_, ck=""):
         return p.run(label, lambda: engine.run_hmc(
             loss_fn, dataclasses.replace(rcfg, max_attempts=attempts), fresh(), gen_,
             draws=accepting_draws(engine, [gen_], x, attempts, EVEN), checkpoint_dir=ck),
-            (ran or attempts) * evals, root=p.model)
+            root=p.model)
 
     with swapped((torch.backends.cudnn, "deterministic", True)):
         straight = resume_run("(c) resume: 2 attempts straight", 2,
@@ -1747,7 +1631,7 @@ def phase_noise_space(p, hcfg_main):
             saved = checkpointing.load_chain_state(ck, fresh())
             check(saved is not None and int(saved.attempts.max()) == 1, "(c): no snapshot")
             other = torch.Generator(p.dev).manual_seed(SEED + 77)  # the snapshot's state
-            resumed = resume_run("(c) resume: restore + 1 attempt", 2, other, ck, ran=1)
+            resumed = resume_run("(c) resume: restore + 1 attempt", 2, other, ck)
     for name in ("accepted", "epoch", "attempts", "rejected"):
         check(torch.equal(getattr(straight, name), getattr(resumed, name)),
               f"(c): {name} {getattr(straight, name).tolist()} vs "
@@ -1778,14 +1662,11 @@ def phase_noise_space(p, hcfg_main):
     loss_fn = engine.make_pixel_loss_fn(p.decode, op, y0[0])
     out = p.run("(d) phase_retrieval, 64 chains in waves of 8", lambda: engine.run_hmc(
         loss_fn, one, engine.init_chains(one, PR_CHAINS, shape, p.dev, x=x64), gen,
-        chain_chunk=PR_CHUNK), evals, root=p.model)
-    rec = p.records["(d) phase_retrieval, 64 chains in waves of 8"]
-    rec["chain_evals_per_s"] = rec["evals_per_s"] * PR_CHAINS
+        chain_chunk=PR_CHUNK), root=p.model)
     check(bool(torch.isfinite(out.x).all()) and int(out.attempts.min()) == 1,
           "(d) phase retrieval: state not finite")
     print(f"  (d) BASELINE config 4's shape: {PR_CHAINS} chains, 1 attempt in "
-          f"{PR_CHAINS // PR_CHUNK} waves: {rec['chain_evals_per_s']:.2f} chain-evaluations/s, "
-          f"accepted {int(out.accepted.sum())} of {PR_CHAINS}")
+          f"{PR_CHAINS // PR_CHUNK} waves: accepted {int(out.accepted.sum())} of {PR_CHAINS}")
     del out, loss_fn, x64
 
     # (f) DMPlug at batch 1: Adam 10 steps, L-BFGS 3 steps
@@ -1798,17 +1679,14 @@ def phase_noise_space(p, hcfg_main):
     adam_losses, lbfgs_losses = [], []
     p.run("(f) dmplug_adam, 10 steps", lambda: dmplug.dmplug_adam(
         loss_and_decode, x1, dmplug.DMPlugAdamConfig(max_steps=10),
-        progress=lambda k_, l_: adam_losses.append(l_)), 10, root=p.model)  # 10 steps
+        progress=lambda k_, l_: adam_losses.append(l_)), root=p.model)
     p.run("(f) dmplug_lbfgs, 3 steps", lambda: dmplug.dmplug_lbfgs(
         loss_and_decode, x1, epochs=1, max_inner=3, chunk=1,
-        progress=lambda k_, l_: lbfgs_losses.append(l_)), 3, root=p.model)
+        progress=lambda k_, l_: lbfgs_losses.append(l_)), root=p.model)
     for name, ls in (("dmplug_adam", adam_losses), ("dmplug_lbfgs", lbfgs_losses)):
         check(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0], f"(f) {name}: losses {ls}")
-        p.records[f"(f) {name}, {len(ls)} steps"]["steps_per_s"] = (
-            len(ls) / p.records[f"(f) {name}, {len(ls)} steps"]["s"])
     print(f"  (f) dmplug_adam losses {[round(v, 1) for v in adam_losses]}; dmplug_lbfgs losses "
           f"{[round(v, 1) for v in lbfgs_losses]}")
-    print(f"phase 9 (a)-(f) took {time.time() - t_phase:.1f} s")
     return p.records
 
 
@@ -1833,12 +1711,11 @@ def phase_latent_checkpoint_cli(p):
                 "--latent_epochs", "1", "--latent_sampling", "1", "--data_path", data,
                 "--checkpoint-dir", os.path.join(tmp, "ck")]
         first = p.run("(g) latent CLI --checkpoint-dir, run 1", lambda: cli.main(
-            argv + ["-i", os.path.join(tmp, "out1")]), 3 * 3, k1="attention_f32")
+            argv + ["-i", os.path.join(tmp, "out1")]), k1="attention_f32")
         check(os.path.exists(os.path.join(tmp, "ck", "img0", "step_0.pt")),
               "(g): no snapshot under img0")
         for f in (*p.counters.values(), p.gn.groupnorm_silu_backward):
             f.launches = 0
-        t0 = time.perf_counter()
         with plain_calls() as plain:
             second = cli.main(argv + ["-i", os.path.join(tmp, "out2")])
             p.torch.cuda.synchronize()
@@ -1850,9 +1727,8 @@ def phase_latent_checkpoint_cli(p):
         b = np.asarray(Image.open(os.path.join(tmp, "out2", "0.png")))
         check(np.array_equal(a, b) and first == second,
               f"(g): the resumed run's 0.png or summary differs: {first} vs {second}")
-        print(f"phase 9 (g) latent CLI --checkpoint-dir, run 2: {time.perf_counter() - t0:.3f} s, "
-              f"restored the final snapshot (K2c 0 launches, no attempt), the same 0.png and "
-              f"summary {second}; {p.card}")
+        print(f"phase 9 (g) latent CLI --checkpoint-dir, run 2: restored the final snapshot "
+              f"(K2c 0 launches, no attempt), the same 0.png and summary {second}; {p.card}")
 
 
 # ---- 10. the iterative baselines ----------------------------------------------------------------
@@ -2047,15 +1923,9 @@ def baseline_run(torch, gn, counters, card, label, fn, k1, k2c, nets):
         f.launches = 0
     for n in nets.values():
         n.forwards = n.backwards = 0
-    torch.cuda.synchronize()
-    base_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with plain_calls() as plain, branch_counts() as branches:
         out = fn()
         torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     launches = {k: f.launches for k, f in counters.items()}
     k2c_n = launches["gn_backward"] + launches["gn_backward_twopass"]
     finite = bool(torch.isfinite(out).all())
@@ -2068,16 +1938,14 @@ def baseline_run(torch, gn, counters, card, label, fn, k1, k2c, nets):
     allowed = {k1, "gn_stats", "gn_apply", *(BWD_KERNELS.values() if k2c else ())}
     for k, v in launches.items():
         check(k in allowed or v == 0, f"{label}: kernel {k} launched {v} times")
-    rec = dict(s=dt, peak_memory_gb=peak_gb, allocated_before_gb=base_gb,
-               launches={k: v for k, v in launches.items() if v},
+    rec = dict(launches={k: v for k, v in launches.items() if v},
                **{f"{k}_{w}": getattr(n, w) for k, n in nets.items()
                   for w in ("forwards", "backwards")},
                branches={k: v for k, v in branches.items() if v}, finite=finite, card=card)
-    print(f"phase 10(b) {label}: {dt:.3f} s, "
+    print(f"phase 10(b) {label}: "
           + ", ".join(f"{k} forwards {n.forwards} backwards {n.backwards}"
                       for k, n in nets.items())
-          + f", peak memory {peak_gb:.2f} GB ({base_gb:.2f} allocated before); launches "
-          f"{rec['launches']}; plain versions 0; output finite; branches "
+          + f"; launches {rec['launches']}; plain versions 0; output finite; branches "
           f"{rec['branches'] or 'the plain ladder'}; {card}")
     rec["launches"] = launches
     return rec
@@ -2128,24 +1996,6 @@ def phase_baselines(torch, np, gn, counters, card, flagship):
                                                f"expected {w}")
     del p
     return recs
-
-
-def gn_stats_times(torch, gn, x, eps, where):
-    """K2a's launch at x (B, R, C): device ms from CUDA graphs beside its
-    plain version's and `torch.var_mean`'s (per channel, no group
-    combine), and the bound."""
-    b, r, cc = x.shape
-    n = b * r * cc
-    ms = time_ms_graph(lambda: gn.group_stats(x, gn.NUM_GROUPS, eps))
-    plain = time_ms_graph(lambda: gn.group_stats_plain(x, gn.NUM_GROUPS, eps))
-    lib = time_ms_graph(lambda: torch.var_mean(x, dim=1, correction=0))
-    bms, by = bound_ms(n * x.element_size() + b * 4 * cc * 4, 3 * n, "float32")
-    dname = str(x.dtype).split(".")[1]
-    print(f"K2a {tuple(x.shape)} {dname} ({where}): kernel {ms:.4f} ms (CUDA graphs), plain "
-          f"{plain:.4f}, var_mean {lib:.4f}, bound {bms:.4f} ({by}), {100 * bms / ms:.0f}% of "
-          f"bound")
-    return dict(shape=list(x.shape), dtype=dname, eps=eps, ms=ms, plain_ms=plain,
-                library_ms=lib, bound_ms=bms, bound_by=by)
 
 
 def phase_baselines_kernels(torch, attn, gn, kc):
@@ -2205,7 +2055,6 @@ def phase_baseline_cli(np, cfg, algo, size):
         cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config", cfg, "--device", "cuda",
                "--algo", algo, "--deg", "inpaint_random", "--data_path", data,
                "-i", os.path.join(tmp, "out")]
-        t0 = time.time()
         r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
         lines = r.stdout.strip().splitlines()
         check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"'),
@@ -2216,8 +2065,7 @@ def phase_baseline_cli(np, cfg, algo, size):
         for name in ("0.png", "orig_0.png", "y0_0.png", "metrics.jsonl"):
             check(os.path.exists(os.path.join(tmp, "out", name)),
                   f"CLI --algo {algo} did not write {name}")
-        print(f"phase 10(d) CLI --algo {algo} ({os.path.basename(cfg)}, cuda) in "
-              f"{time.time() - t0:.1f} s: {lines[-1]}")
+        print(f"phase 10(d) CLI --algo {algo} ({os.path.basename(cfg)}, cuda): {lines[-1]}")
 
 
 # ---- 11. the remaining models and utilities ---------------------------------------------------
@@ -2305,24 +2153,17 @@ def phase_models_small(torch, np):
 def counted_run(torch, kc, gn, counters, root, fn, n, label):
     """fn() `n` times with every kernel count set to 0 just before and read
     just after, the plain versions and the GN sites under `root` counted
-    (forward hooks): (record, launches, {GN+SiLU shape: calls}, {GroupNorm32
-    shape: calls}, {attention shape: calls}). Checks no plain version ran."""
+    (forward hooks): (launches, {GN+SiLU shape: calls}, {GroupNorm32 shape:
+    calls}, {attention shape: calls}). Checks no plain version ran."""
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
-    torch.cuda.synchronize()
-    base_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with plain_calls() as plain:
         gn_calls, attn_calls, norm_calls = kc.count_sites(root, lambda: [fn() for _ in range(n)])
         torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     launches = {k: f.launches for k, f in counters.items()}
     launches["gn_backward_calls"] = gn.groupnorm_silu_backward.launches
     check(not any(plain.values()), f"{label}: plain versions ran on the card: {plain}")
-    rec = dict(s=dt, runs=n, per_s=n / dt, peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-               allocated_before_gb=base_gb)
-    return rec, launches, gn_calls, norm_calls, attn_calls
+    return launches, gn_calls, norm_calls, attn_calls
 
 
 def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize, k1_calls=0):
@@ -2352,16 +2193,14 @@ def check_gn_launches(label, gn, launches, gn_calls, norm_calls, itemsize, k1_ca
 def phase_ddpm(torch, np, engine, kc, gn, counters, card):
     """(b) The CelebA-HQ DDPM (DDPMConfig's defaults, random weights from
     seed 0) as the eps-net of the 3-step DDIM decoder, 92% random
-    inpainting at 256^2, 8 chains: one warm-up energy+grad evaluation (its
-    FLOPs counted by utils/profiling.compiled_flops) and DDPM_EVALS timed
-    ones, in bf16 and f32, each timed run's counts set to 0 just before and
-    read just after. Returns {dtype: record}."""
+    inpainting at 256^2, 8 chains: one warm-up energy+grad evaluation and
+    DDPM_EVALS counted ones, in bf16 and f32, each counted run's counts set
+    to 0 just before and read just after. Returns {dtype: record}."""
     from nshmc_tpu_torch.cli import host_randn, image_generators
     from nshmc_tpu_torch.models.ddpm_simple import DDPMConfig, DDPMModel
     from nshmc_tpu_torch.operators import build_operator
     from nshmc_tpu_torch.sampling import ddim
     from nshmc_tpu_torch.schedules import DDIMSequence, DiffusionSchedule
-    from nshmc_tpu_torch.utils.profiling import compiled_flops
 
     dev = torch.device("cuda")
     cfg = DDPMConfig()
@@ -2380,14 +2219,12 @@ def phase_ddpm(torch, np, engine, kc, gn, counters, card):
         model.load_state_dict(weights)
         model = model.to(dev).eval()
         loss_fn = engine.make_pixel_loss_fn(ddim.make_decoder(model, sched, seq), op, y0[0])
-        res = {}
-        flops = compiled_flops(lambda: res.setdefault("w", engine.value_and_grad(loss_fn, x)))
-        loss, dec, grad = res["w"]
+        loss, dec, grad = engine.value_and_grad(loss_fn, x)
         check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all())
               and dec.shape == (CHAINS, d, d, 3) and float(grad.abs().max()) > 0,
               f"phase 11(b) DDPM {dname}: loss or gradient not finite, or zero")
         label = f"phase 11(b) DDPM {dname}"
-        rec, launches, gn_calls, norm_calls, _ = counted_run(
+        launches, gn_calls, norm_calls, _ = counted_run(
             torch, kc, gn, counters, model, lambda: engine.value_and_grad(loss_fn, x),
             DDPM_EVALS, label)
         check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize)
@@ -2396,19 +2233,12 @@ def phase_ddpm(torch, np, engine, kc, gn, counters, card):
               and sum(norm_calls.values()) == 3 * DDPM_EVALS * sum(kc.DDPM_NORM_SITES.values()),
               f"{label}: {sum(gn_calls.values())} GN+SiLU and {sum(norm_calls.values())} "
               f"GroupNorm32 calls for {DDPM_EVALS} evaluations of 3 forwards")
-        rec.update(evals_per_s=rec["per_s"], useful_tflop_per_eval=flops / 1e12,
-                   useful_tflop_per_s=flops * rec["per_s"] / 1e12, launches_per_eval=per,
-                   loss=loss.tolist(), dtype=dname, chains=CHAINS, card=card)
+        out[dname] = dict(launches_per_eval=per, loss=loss.tolist(), dtype=dname, chains=CHAINS,
+                          card=card, launches=launches)
         print(f"{label}: {DDPM_EVALS} energy+grad evals (3 DDPM forwards and their input "
-              f"gradient each), {CHAINS} chains, 256^2: {rec['s']:.3f} s, "
-              f"{rec['evals_per_s']:.3f} evals/s, peak memory {rec['peak_memory_gb']:.2f} GB "
-              f"({rec['allocated_before_gb']:.2f} allocated before), "
-              f"{flops / 1e12:.3f} TFLOP an eval (utils/profiling.compiled_flops), "
-              f"{rec['useful_tflop_per_s']:.1f} useful TFLOP/s; launches an eval {per}; "
-              f"plain versions 0, K1 0; {card}")
-        rec["launches"] = launches
-        out[dname] = rec
-        del model, loss_fn, res, loss, dec, grad
+              f"gradient each), {CHAINS} chains, 256^2: launches an eval {per}; plain "
+              f"versions 0, K1 0; {card}")
+        del model, loss_fn, loss, dec, grad
     return out
 
 
@@ -2446,7 +2276,7 @@ def phase_conditional(torch, kc, gn, counters, card):
         check(bool(torch.isfinite(eps).all() and torch.isfinite(grad).all())
               and float(grad.abs().max()) > 0, f"phase 11(c) {dname}: not finite, or zero")
         label = f"phase 11(c) conditional U-Net {dname}"
-        rec, launches, gn_calls, norm_calls, attn_calls = counted_run(
+        launches, gn_calls, norm_calls, attn_calls = counted_run(
             torch, kc, gn, counters, model, fwd_grad, 1, label)
         self_attn = sum(name.endswith(".attn1") for name, _ in model.named_modules())
         check_gn_launches(label, gn, launches, gn_calls, norm_calls, dt.itemsize, self_attn)
@@ -2454,14 +2284,12 @@ def phase_conditional(torch, kc, gn, counters, card):
               and gn_calls == kc.LATENT_UNET_GN_SITES,
               f"{label}: GroupNorm32 sites {norm_calls}, GN+SiLU {gn_calls}, attention "
               f"blocks {attn_calls}")
-        rec.update(ms=1e3 * rec["s"], launches_nonzero={k: v for k, v in launches.items() if v},
-                   dtype=dname, chains=CHAINS, card=card)
+        rec = dict(launches_nonzero={k: v for k, v in launches.items() if v}, dtype=dname,
+                   chains=CHAINS, card=card)
         print(f"{label}: forward + input gradient, {CHAINS} chains, (8, 1, 512) context: "
-              f"{rec['ms']:.1f} ms, peak memory {rec['peak_memory_gb']:.2f} GB; launches "
-              f"{rec['launches_nonzero']} (K2a at the 16 SpatialTransformer norms too; K1 at "
-              f"their {self_attn} self-attentions); plain versions 0; {card}")
-        rec["launches"] = launches
-        out[dname] = rec
+              f"launches {rec['launches_nonzero']} (K2a at the 16 SpatialTransformer norms too; "
+              f"K1 at their {self_attn} self-attentions); plain versions 0; {card}")
+        out[dname] = {**rec, "launches": launches}
         del model, eps, grad
     return out
 
@@ -2490,7 +2318,7 @@ def phase_class_conditional(torch, np, engine, gn, kc, counters, main_counts, mc
     check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all()),
           "phase 11(d): not finite")
     label = "phase 11(d) class-conditional flagship bf16"
-    rec, launches, _, _, attn_calls = counted_run(
+    launches, _, _, attn_calls = counted_run(
         torch, kc, gn, counters, model, lambda: engine.value_and_grad(loss_fn, x), 1, label)
     for k, v in launches.items():
         if k != "gn_backward_calls":
@@ -2499,18 +2327,17 @@ def phase_class_conditional(torch, np, engine, gn, kc, counters, main_counts, mc
                                                       f"{main_launches[k] / main_evals} an eval")
     check(launches["attention"] == 12 == sum(attn_calls.values()),
           f"{label}: K1 {launches['attention']}, attention blocks {attn_calls}")
-    rec.update(ms=1e3 * rec["s"], launches_nonzero={k: v for k, v in launches.items() if v},
+    rec = dict(launches_nonzero={k: v for k, v in launches.items() if v},
                labels=labels.tolist(), card=card)
     print(f"{label}: one energy+grad evaluation (3 U-Net forwards with label_emb), {CHAINS} "
-          f"chains: {rec['ms']:.1f} ms, peak memory {rec['peak_memory_gb']:.2f} GB; launches "
-          f"{rec['launches_nonzero']}, the main path's an evaluation; plain versions 0; {card}")
-    rec["launches"] = launches
-    return rec
+          f"chains: launches {rec['launches_nonzero']}, the main path's an evaluation; plain "
+          f"versions 0; {card}")
+    return {**rec, "launches": launches}
 
 
 def phase_lpips(torch, np, card):
     """(e) LPIPS-VGG (random weights) on (8, 256, 256, 3) f32 on the card,
-    timed (CUDA events), and at batch 2 against the CPU; then the pixel CLI
+    finite, and at batch 2 against the CPU; then the pixel CLI
     (--algo ddnm, configs/ffhq.yaml) with random weight files where
     try_load_lpips looks (TORCH_HOME, and a stand-in lpips package on the
     subprocess's PYTHONPATH): its record must hold lpips."""
@@ -2521,12 +2348,11 @@ def phase_lpips(torch, np, card):
     ref = lp(a[:2], b[:2])
     lp, ad, bd = lp.to(dev), a.to(dev), b.to(dev)
     full = lp(ad, bd)
-    ms = time_ms(lambda: lp(ad, bd), iters=5, warmup=1)
     err = float((full[:2].cpu() - ref).abs().max() / ref.abs().max())
     check(bool(torch.isfinite(full).all()) and err <= BASELINE_TOL,
           f"phase 11(e) LPIPS at 256^2: card vs CPU {err:.2e}")
-    print(f"phase 11(e) LPIPS-VGG (8, 256, 256, 3) f32: {ms:.3f} ms a call (CUDA events, "
-          f"host included), batch 2 card vs CPU {err:.2e} (bar {BASELINE_TOL}); {card}")
+    print(f"phase 11(e) LPIPS-VGG (8, 256, 256, 3) f32 finite, batch 2 card vs CPU {err:.2e} "
+          f"(bar {BASELINE_TOL}); {card}")
     with tempfile.TemporaryDirectory() as tmp:
         from PIL import Image
         from nshmc_tpu_torch.utils import lpips
@@ -2550,7 +2376,6 @@ def phase_lpips(torch, np, card):
         cmd = [sys.executable, "-m", "nshmc_tpu_torch.cli", "--config",
                os.path.join(ROOT, "configs", "ffhq.yaml"), "--device", "cuda", "--algo", "ddnm",
                "--deg", "inpaint_random", "--data_path", data, "-i", os.path.join(tmp, "out")]
-        t0 = time.time()
         r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
         lines = r.stdout.strip().splitlines()
         check(r.returncode == 0 and lines and lines[-1].startswith('{"summary"')
@@ -2560,9 +2385,9 @@ def phase_lpips(torch, np, card):
         with open(os.path.join(tmp, "out", "metrics.jsonl")) as f:
             rec = json.loads(f.readline())
         check(math.isfinite(rec.get("lpips", float("nan"))), f"CLI record without lpips: {rec}")
-        print(f"phase 11(e) CLI --algo ddnm (configs/ffhq.yaml, cuda) with local LPIPS weights "
-              f"in {time.time() - t0:.1f} s: record {rec}")
-    return dict(ms=ms, batch=CHAINS, size=256, card_vs_cpu=err, cli_lpips=rec["lpips"], card=card)
+        print(f"phase 11(e) CLI --algo ddnm (configs/ffhq.yaml, cuda) with local LPIPS weights: "
+              f"record {rec}")
+    return dict(batch=CHAINS, size=256, card_vs_cpu=err, cli_lpips=rec["lpips"], card=card)
 
 
 def phase_ddpm_kernels(torch, gn, kc):
@@ -2617,16 +2442,13 @@ MESH_KERNELS = ("attention", "gn_stats", "gn_apply", "gn_backward", "gn_backward
 
 def kernel_counters(torch):
     """name -> the object whose `.launches` counts each kernel where it
-    launches (K1's two kernels, K2a, K2a's old Triton chain, K2b, K2c's two
-    designs, P1-P4)."""
+    launches (K1's two kernels, K2a, K2b, K2c's two designs, P1-P4)."""
     from nshmc_tpu_torch.ops import attention as attn
     from nshmc_tpu_torch.ops import groupnorm as gn
     from nshmc_tpu_torch.ops import stream_probe as sp
-    from nshmc_tpu_torch.scripts import groupnorm_stats_variants as stats_variants
 
     return {"attention": attn.KERNEL_LAUNCHES[torch.bfloat16],
             "attention_f32": attn.KERNEL_LAUNCHES[torch.float32], "gn_stats": gn.group_stats,
-            "gn_stats_triton_chain": stats_variants.triton_chain,
             "gn_apply": gn.normalize_silu, "gn_backward": gn.launch_one,
             "gn_backward_twopass": gn.launch_twopass,
             **{f.__name__: f for f in sp.KERNELS}}
@@ -2757,8 +2579,8 @@ def mesh_rank(out_dir):
     """One rank of phase 12(a) (`chip_smoke.py --mesh-rank OUT_DIR`, under
     the NSHMC_* contract): its 4 of the 8 chains through the sharded runner
     on cuda:0, every kernel count set to 0 just before and read just after,
-    one warm-up evaluation first; saves the gathered state, its decisions,
-    launches (a device trace), time and peak memory to OUT_DIR/rank{i}.pt."""
+    one warm-up evaluation first; saves the gathered state, its decisions
+    and launches (a device trace) to OUT_DIR/rank{i}.pt."""
     import numpy as np
     import torch
 
@@ -2782,16 +2604,10 @@ def mesh_rank(out_dir):
     counters = kernel_counters(torch)
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with plain_calls() as plain, device_launches(torch) as launches:
         out, clear = mesh_run(torch, engine, prob, runner)
-    dt = time.perf_counter() - t0
     launches.pop("gn_backward_twopass_parts")
-    rec = dict(rank=mesh.rank, device=str(mesh.device), s=dt, evals=prob.hcfg.n_leapfrog + 1,
-               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9, plain=dict(plain),
-               launches=launches,
+    rec = dict(rank=mesh.rank, device=str(mesh.device), plain=dict(plain), launches=launches,
                state={k: v.cpu() for k, v in vars(out).items()}, clear=clear.cpu())
     torch.save(rec, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
     mh.shutdown()
@@ -2808,19 +2624,12 @@ def phase_mesh_library(torch, np, engine, counters, card):
     as in the unsharded run, no plain version. Returns the record."""
     dev = torch.device("cuda")
     prob = mesh_problem(torch, np, dev)
-    evals = prob.hcfg.n_leapfrog + 1
     for f in counters.values():
         f.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     # the decoder replays its CUDA graphs after its first calls, here and in
     # each rank: the launches are read from a device trace
     with plain_calls() as plain, device_launches(torch) as launches:
         ref, clear_ref = mesh_run(torch, engine, prob)
-    dt = time.perf_counter() - t0
-    unsharded = dict(s=dt, evals_per_s=evals / dt,
-                     peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     launches.pop("gn_backward_twopass_parts")
     check(not any(plain.values()) and all(launches[k] > 0 for k in MESH_KERNELS[:3])
           and launches["gn_backward"] + launches["gn_backward_twopass"] > 0,
@@ -2829,9 +2638,7 @@ def phase_mesh_library(torch, np, engine, counters, card):
     del prob
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
         launch_ranks([os.path.abspath(__file__), "--mesh-rank", tmp], "phase 12(a)")
-        wall = time.time() - t0
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(MESH)]
     for r in ranks:
         lc = r["launches"]
@@ -2850,33 +2657,24 @@ def phase_mesh_library(torch, np, engine, counters, card):
     sharded = types.SimpleNamespace(**{k: v.to(dev) for k, v in ranks[0]["state"].items()})
     clear = clear_ref & torch.cat([r["clear"] for r in ranks]).to(dev)
     worst, n_clear = compare_chains(torch, "phase 12(a)", sharded, ref, x_start, clear)
-    per_rank = [dict(device=r["device"], s=r["s"], evals_per_s=r["evals"] / r["s"],
-                     peak_memory_gb=r["peak_memory_gb"],
-                     launches={k: v for k, v in r["launches"].items() if v}) for r in ranks]
+    per_rank = [dict(device=r["device"], launches={k: v for k, v in r["launches"].items() if v})
+                for r in ranks]
     for r, pr in zip(ranks, per_rank):
-        print(f"phase 12(a) rank {r['rank']} of {MESH} on {pr['device']}: 4 chains, one attempt "
-              f"of {r['evals']} energy+grad evals in {pr['s']:.3f} s (gather included), "
-              f"{pr['evals_per_s']:.3f} a second, peak memory {pr['peak_memory_gb']:.2f} GB; "
+        print(f"phase 12(a) rank {r['rank']} of {MESH} on {pr['device']}: 4 chains, one attempt: "
               f"launches {pr['launches']}; plain versions 0; {card}")
-    rate = sum(pr["evals_per_s"] for pr in per_rank) * (CHAINS // MESH)  # chain-evaluations/s
-    unsharded["launches"] = {k: v for k, v in launches.items() if v}
-    print(f"phase 12(a) unsharded, 8 chains in this process: {evals} evals in "
-          f"{unsharded['s']:.3f} s, {unsharded['evals_per_s']:.3f} a second "
-          f"({CHAINS * unsharded['evals_per_s']:.2f} chain-evaluations/s; the ranks together "
-          f"{rate:.2f}), peak memory {unsharded['peak_memory_gb']:.2f} GB; {card}")
+    unsharded = {"launches": {k: v for k, v in launches.items() if v}}
+    print(f"phase 12(a) unsharded, 8 chains in this process: launches {unsharded['launches']}")
     print(f"phase 12(a) sharded (2 ranks x 4 chains, one card) against unsharded (8 chains): "
           f"{n_clear}, equal; moved states within {worst:.3e} of their displacement "
-          f"(tolerance {DISPLACEMENT_TOL}); accepted {ref.accepted.tolist()}; the ranks took "
-          f"{wall:.1f} s of wall time from launch to exit")
+          f"(tolerance {DISPLACEMENT_TOL}); accepted {ref.accepted.tolist()}")
     return {"ranks": per_rank, "unsharded": unsharded, "worst_displacement_ratio": worst,
-            "compared": n_clear, "ranks_chain_evals_per_s": rate,
-            "launch_to_exit_s": wall, "card": card}
+            "compared": n_clear, "card": card}
 
 
 def mesh_cli(np, label, argv, n_images):
     """The port's CLI as MESH ranks on cuda:0 over `n_images` synthetic
     256^2 images (the first phase 5's): returns (the ranks' outputs, the
-    metrics rows, the output folder's files, seconds)."""
+    output folder's files)."""
     from PIL import Image
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2886,10 +2684,8 @@ def mesh_cli(np, label, argv, n_images):
             Image.fromarray((synthetic_image(np, 256, SEED + 3 + i) * 255).astype(np.uint8)).save(
                 os.path.join(data, "face.png" if i == 0 else f"face{i}.png"))
         out = os.path.join(tmp, "out")
-        t0 = time.time()
         outs = launch_ranks(["-m", "nshmc_tpu_torch.cli", "--device", "cuda:0", *argv,
                              "--data_path", data, "-i", out], label)
-        dt = time.time() - t0
         with open(os.path.join(out, "metrics.jsonl")) as f:
             rows = [json.loads(line) for line in f.read().splitlines()]
         files = sorted(os.listdir(out))
@@ -2902,9 +2698,9 @@ def mesh_cli(np, label, argv, n_images):
     check(math.isfinite(summary.get("psnr", float("nan"))), f"{label}: summary {summary}")
     check([r["idx"] for r in rows] == list(range(n_images))
           and all(math.isfinite(r["psnr"]) for r in rows), f"{label}: metrics rows {rows}")
-    print(f"{label} in {dt:.1f} s: rows {[(r['idx'], r['file']) for r in rows]}, files {files}; "
+    print(f"{label}: rows {[(r['idx'], r['file']) for r in rows]}, files {files}; "
           f"{summaries[0][0]}")
-    return outs, rows, files, dt
+    return outs, files
 
 
 def phase_mesh_clis(np):
@@ -2913,30 +2709,29 @@ def phase_mesh_clis(np):
     metrics row and the summary; (c) --algo ddnm over two images: rank i
     takes image i and saves it, the primary writes both rows in idx order;
     (d) --algo hmc_latent --mesh 2 --chains 8 on configs/ffhq_latent.yaml
-    (f32). Returns each run's seconds."""
+    (f32)."""
     ffhq = os.path.join(ROOT, "configs", "ffhq.yaml")
     one = ["0.png", "metrics.jsonl", "orig_0.png", "std_dev_map_0.png", "y0_0.png"]
     # sigma_0 0.5: the post-anneal likelihood at sigma_y 1.0, so the L = 2 proposals of
     # the random-weight prior are accepted within a few attempts
-    outs, _, files, t_b = mesh_cli(np, "phase 12(b) CLI --algo hmc --mesh 2 --chains 8", [
+    outs, files = mesh_cli(np, "phase 12(b) CLI --algo hmc --mesh 2 --chains 8", [
         "--config", ffhq, "--algo", "hmc", "--deg", "inpaint_random", "--chains", str(CHAINS),
         "--mesh", str(MESH), "--tau", "0.1", "--epsilon", "0.05", "--hmc_epochs", "1",
         "--hmc_sampling", "1", "--sigma_0", "0.5"], 1)
     check(files == one, f"phase 12(b): files {files}")
     check("chains sharded over 2 processes" in outs[0], "phase 12(b): no sharded run")
-    outs, _, files, t_c = mesh_cli(np, "phase 12(c) CLI --algo ddnm, 2 images", [
+    outs, files = mesh_cli(np, "phase 12(c) CLI --algo ddnm, 2 images", [
         "--config", ffhq, "--algo", "ddnm", "--deg", "inpaint_random", "--subset_end", "2"], 2)
     check(files == sorted(one[:3] + ["1.png", "orig_1.png", "y0_0.png", "y0_1.png"]),
           f"phase 12(c): files {files}")
     for rank, o in enumerate(outs):
         check(f"[{rank}] " in o and f"[{1 - rank}] " not in o,
               f"phase 12(c): rank {rank} did not take image {rank} alone")
-    outs, _, files, t_d = mesh_cli(np, "phase 12(d) CLI --algo hmc_latent --mesh 2 --chains 8", [
+    _, files = mesh_cli(np, "phase 12(d) CLI --algo hmc_latent --mesh 2 --chains 8", [
         "--config", LATENT_CFG, "--algo", "hmc_latent", "--deg", "inpaint_random",
         "--chains", str(CHAINS), "--mesh", str(MESH), "--tau", "0.1", "--epsilon", "0.05",
         "--latent_epochs", "1", "--latent_sampling", "1"], 1)
     check(set(one) - {"std_dev_map_0.png"} <= set(files), f"phase 12(d): files {files}")
-    return {"cli_hmc_mesh_s": t_b, "cli_ddnm_data_sharded_s": t_c, "cli_hmc_latent_mesh_s": t_d}
 
 
 SD_CFG = os.path.join(ROOT, "configs", "sd21_base_latent.yaml")
@@ -2961,13 +2756,11 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
     from nshmc_tpu_torch.hmc import latent
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
-    t_phase = time.time()
     p = latent_problem(torch, np, SD_CFG, bf16, dev)
     state = latent.init_latent_chains(
         latent.LatentHMCConfig(sigma_0=0.1, sigma_y0=1.0, tau=1.0, epsilon=0.05, epochs=1,
                                sampling=0), CHAINS, p.z_shape, dev, z=p.z_t)
-    print(f"phase 13 SD built in {time.time() - t_phase:.1f} s; context "
-          f"{tuple(p.ldm.model.context.shape)}")
+    print(f"phase 13 SD built; context {tuple(p.ldm.model.context.shape)}")
 
     # (a) the sites, by hooks
     attn_sites = {}
@@ -3030,20 +2823,13 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
     for f in (*counters.values(), gn.groupnorm_silu_backward, attn.attention_forward,
               attn.LONG_LAUNCHES):
         f.launches = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eval_s = []
     with plain_calls() as plain, device_launches(torch) as launches:
         for _ in range(SD_EVALS):
-            t0 = time.perf_counter()
             loss, _, grad = engine.value_and_grad(p.loss_fn, state.z)
-            torch.cuda.synchronize()
-            eval_s.append(time.perf_counter() - t0)
     twopass_parts = launches.pop("gn_backward_twopass_parts")
     wrappers = {k: f.launches for k, f in counters.items()}
     bwd_calls = gn.groupnorm_silu_backward.launches
     k1_calls, k1_long = attn.attention_forward.launches, attn.LONG_LAUNCHES.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     def gn_count(sites, chunked):
         return sum(n * (gn.stats_channel_chunks(s[2], gn.NUM_GROUPS) if chunked else 1)
@@ -3061,10 +2847,9 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
                          + gn_count(dec_gn, True) + gn_count(dec_norm, True)) * SD_EVALS,
             "gn_apply": (3 * sum(unet_gn.values()) + n_dec_gn) * SD_EVALS, **want_bwd}
     print(f"phase 13 (c) SD: {SD_EVALS} energy+grad evaluations (eager, eager, capture, "
-          f"replay) in {[round(v, 3) for v in eval_s]} s, peak {peak_gb:.2f} GB; kernels on the "
-          f"card (device trace) {launches}; the wrappers' counters {wrappers}; K2a calls "
-          f"{stats_calls}; K2c calls {bwd_calls}; K1 calls {k1_calls}, {k1_long} of them in "
-          f"the long-sequence design")
+          f"replay): kernels on the card (device trace) {launches}; the wrappers' counters "
+          f"{wrappers}; K2a calls {stats_calls}; K2c calls {bwd_calls}; K1 calls {k1_calls}, "
+          f"{k1_long} of them in the long-sequence design")
     check(not any(plain.values()), f"phase 13 SD: plain versions ran on the card: {plain}")
     check(bool(torch.isfinite(loss).all() and torch.isfinite(grad).all()),
           "phase 13 SD: energy or gradient not finite")
@@ -3082,10 +2867,9 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
           f"past {attn.TC_RES_MAX_T} tokens")
     del p, state, loss, grad
     release_graphs(torch, "phase 13")
-    print(f"phase 13 (Stable Diffusion 2.1-base) took {time.time() - t_phase:.1f} s; {card}")
+    print(f"phase 13 (Stable Diffusion 2.1-base) passed; {card}")
     return {"attention": attn_recs, "launches": launches, "k2a_calls": stats_calls,
             "k1_long_launches": k1_long,
-            "eval_s": eval_s, "peak_memory_gb": peak_gb,
             "sites": {"attention": {str(k): v for k, v in attn_sites.items()},
                       "unet_wide": [list(s) for s in wide],
                       "kl_decoder_gn_silu": {str(k): v for k, v in dec_gn.items()}}}
@@ -3094,13 +2878,11 @@ def phase_sd(torch, np, engine, attn, gn, kc, counters, card):
 def main():
     t_start = time.time()
     args = sys.argv[1:]
-    trace_dir, sd_only = None, args == ["--sd"]
-    if args[:1] == ["--trace"] and len(args) == 2:
-        trace_dir = args[1]
-    elif args[:1] == ["--mesh-rank"] and len(args) == 2:  # one rank of phase 12(a)
+    sd_only = args == ["--sd"]
+    if args[:1] == ["--mesh-rank"] and len(args) == 2:  # one rank of phase 12(a)
         return mesh_rank(args[1])
-    elif args and not sd_only:
-        fail("usage: chip_smoke.py [--trace OUT_DIR | --sd]")
+    if args and not sd_only:
+        fail("usage: chip_smoke.py [--sd]")
     try:
         import numpy as np
         import torch
@@ -3118,23 +2900,22 @@ def main():
         from nshmc_tpu_torch.ops import _build as build
         from nshmc_tpu_torch.ops import attention as attn
         from nshmc_tpu_torch.ops import groupnorm as gn
-        from nshmc_tpu_torch.ops import stream_probe as sp
         from nshmc_tpu_torch.sampling import ddim
         from nshmc_tpu_torch.sampling import graphs as ddim_graphs
-        from nshmc_tpu_torch.scripts import groupnorm_stats_variants as stats_variants
         from nshmc_tpu_torch.scripts import kernel_check as kc
         from nshmc_tpu_torch import operators as ops_mod
         from nshmc_tpu_torch import schedules as sched_mod
+        from nshmc_tpu_torch.scripts._bench import card as card_name
     except ImportError as e:
         fail(f"cannot import the port (run from a checkout of the repository): {e}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print("TF32 off for matmuls and cuDNN convolutions: f32 phases run in full f32")
-    card = gpu_name_and_power()
+    dev = torch.device("cuda")
+    card = card_name(dev)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}; "
           f"{torch.cuda.device_count()} device(s)")
-    dev = torch.device("cuda")
 
     # ---- build -------------------------------------------------------------
     build_kernels(torch, build, gn)
@@ -3190,14 +2971,6 @@ def main():
     print(f"flagship U-Net forward: {n_gn} GroupNorm+SiLU sites over {len(gn_shapes)} shapes, "
           f"{n_attn} attention blocks over {len(attn_sites)} shapes")
 
-    if trace_dir is not None:
-        trace_eval(torch, engine, loss_fn, state.x, trace_dir)
-        trace_operators(torch, np, engine, decode, x_orig, d, c, hcfg, trace_dir)
-        del model, state, loss_fn, decode
-        for dt in (torch.bfloat16, torch.float32):
-            phase_latent_flagship(torch, np, engine, kc, gn, None, trace_dir, dt)
-        return
-
     # the main path's kernels, and the probe kernels, which it must not run
     check(gn_shapes == kc.FLAGSHIP_GN_SITES,
           f"GN+SiLU sites {gn_shapes} are not kernel_check.FLAGSHIP_GN_SITES")
@@ -3222,54 +2995,37 @@ def main():
     replays0 = graphs_.replays
     for f in (*counters.values(), gn.groupnorm_silu_backward):
         f.launches = 0
-    base_gb = torch.cuda.memory_allocated() / 1e9
-    torch.cuda.reset_peak_memory_stats()
-    round_s = []
-
-    def timed(states, rnd):
-        torch.cuda.synchronize()
-        round_s.append(time.perf_counter())
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    rounds = []
     with plain_calls() as plain_run, device_launches(torch) as launches:
-        out = engine.run_hmc(loss_fn, hcfg, state, gen, callback=timed,
+        out = engine.run_hmc(loss_fn, hcfg, state, gen, callback=lambda s_, r_: rounds.append(r_),
                              draws=accepting_draws(engine, [gen], state.x, ATTEMPTS, [0]))
     plain = {k: v + plain_run[k] for k, v in plain.items()}
     twopass_parts = launches.pop("gn_backward_twopass_parts")
     wrappers = {k: f.launches for k, f in counters.items()}  # as the replays advance them
     bwd_calls = gn.groupnorm_silu_backward.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = hcfg.n_leapfrog + 1
-    steps = [b - a for a, b in zip([t0] + round_s[:-1], round_s)]
-    check(graphs_.replays - replays0 == evals * len(steps) and len(decode.graphs) == 1,
-          f"{graphs_.replays - replays0} graph replays for {evals * len(steps)} evaluations")
-    gn_calls = {k: v * evals * len(steps) for k, v in gn_eval.items()}
-    norm_calls = {k: v * evals * len(steps) for k, v in norm_eval.items()}
-    steady = steps[1:] or steps
-    evals_per_s = evals * len(steady) / sum(steady)
-    print(f"main path: {len(steps)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
-          f"bf16, each replaying the decoder's CUDA graphs, under a device trace; attempt "
-          f"times {[round(s, 3) for s in steps]} s; "
-          f"{evals_per_s:.3f} energy+grad evals/s (attempts 2+); peak memory {peak_gb:.2f} GB "
-          f"({base_gb:.2f} allocated before the run)")
+    n_evals = evals * len(rounds)
+    check(graphs_.replays - replays0 == n_evals and len(decode.graphs) == 1,
+          f"{graphs_.replays - replays0} graph replays for {n_evals} evaluations")
+    gn_calls = {k: v * n_evals for k, v in gn_eval.items()}
+    norm_calls = {k: v * n_evals for k, v in norm_eval.items()}
+    print(f"main path: {len(rounds)} MH attempts x {evals} energy+grad evals, {CHAINS} chains, "
+          f"bf16, each replaying the decoder's CUDA graphs, under a device trace")
     print(f"main path kernel launches on the card (device trace): {launches} "
-          f"(per energy+grad eval: "
-          f"{ {k: v / (evals * len(steps)) for k, v in launches.items()} }); the two-pass "
-          f"design's partial and dx kernels {twopass_parts} each")
+          f"(per energy+grad eval: { {k: v / n_evals for k, v in launches.items()} }); the "
+          f"two-pass design's partial and dx kernels {twopass_parts} each")
     print(f"GN+SiLU backward calls per U-Net forward: "
-          f"{(launches['gn_backward'] + launches['gn_backward_twopass']) / (3 * evals * len(steps)):.2f} "
+          f"{(launches['gn_backward'] + launches['gn_backward_twopass']) / (3 * n_evals):.2f} "
           f"(expected one per GN+SiLU site: {n_gn}), one kernel design each: "
           f"{launches['gn_backward']} one-launch + {launches['gn_backward_twopass']} two-pass")
-    check(launches["gn_backward"] + launches["gn_backward_twopass"] == 3 * evals * len(steps) * n_gn
+    check(launches["gn_backward"] + launches["gn_backward_twopass"] == 3 * n_evals * n_gn
           and twopass_parts == launches["gn_backward_twopass"],
           f"K2c launched {launches} (two-pass parts {twopass_parts}) for {n_gn} GN+SiLU sites")
     # ops/launches.py: each replay advances the wrappers' counters by what the
     # capture counted, so they must read what the card ran
-    check(wrappers == launches and bwd_calls == 3 * evals * len(steps) * n_gn,
+    check(wrappers == launches and bwd_calls == 3 * n_evals * n_gn,
           f"the wrappers' counters {wrappers} ({bwd_calls} K2c calls) are not the card's "
           f"launches {launches}")
-    n_evals = evals * len(steps)
     n_silu, n_norm = sum(gn_calls.values()), sum(norm_calls.values())
     print(f"main path K2a launches per energy+grad eval by shape (hooks; GN+SiLU, then "
           f"GroupNorm32): { {str(k): v / n_evals for k, v in sorted(gn_calls.items())} }, "
@@ -3380,11 +3136,9 @@ def main():
           f"{top('gn_apply', 'float32'):.2e} (tol 1e-4), bf16 {top('gn_apply', 'bfloat16'):.2e} "
           f"(tol 2^-7 |y| + 1e-3)")
 
-    # K2a's four ways side by side at every K2a site of the three paths, in this call
-    stats_records = stats_variants.main([])
-    check(all(v["agrees"] for v in stats_records), "K2a disagrees at a variants site")
-    print(f"K2a variants: {json.dumps(stats_variants.summary(stats_records))}")
-    stats_by = {(tuple(v["shape"]), v["dtype"]): v for v in stats_records}
+    # K2a alone at every K2a site of the flagship and of the latent path
+    stats_records = k2a_sites(torch, gn, kc, dev)
+    stats_by = {tuple(v["shape"]): v for v in stats_records if v["path"] == "flagship"}
     for (b, r, cc), n_sites in sorted(gn_shapes.items()):  # K2b and the whole site, bf16
         x = (1.5 * torch.randn((b, r, cc), generator=g, device=dev) + 0.3).to(torch.bfloat16)
         sc = 1 + 0.3 * torch.randn((b, cc), generator=g, device=dev)
@@ -3398,20 +3152,18 @@ def main():
         lib = time_ms(lambda: torch.nn.functional.silu(
             torch.nn.functional.group_norm(x4, 32, w1, b1, 1e-5)))
         n = b * r * cc
-        st = stats_by[((b, r, cc), "bfloat16")]
-        st_b, st_by = bound_ms(n * 2 + b * 4 * cc * 4, 3 * n, "float32")
+        st = stats_by[(b, r, cc)]
         ap_b, ap_by = bound_ms(2 * n * 2 + 4 * b * cc * 4, 8 * n, "float32")
-        print(f"K2 {(b, r, cc)} bf16, {n_sites} sites/forward: stats {st['new_ms']:.4f} ms "
-              f"(CUDA graphs; Triton chain {st['triton_chain_ms']:.4f}, var_mean "
-              f"{st['var_mean_ms']:.4f}, plain {st['plain_ms']:.4f}, bound {st_b:.4f}), apply "
-              f"{ap_ms:.4f} ms (plain {ap_plain:.4f}, bound {ap_b:.4f}); whole GN+SiLU "
-              f"{whole:.4f} ms vs F.group_norm+F.silu {lib:.4f} ms (eager)")
+        print(f"K2 {(b, r, cc)} bf16, {n_sites} sites/forward: stats {st['ms']:.4f} ms "
+              f"(CUDA graphs; var_mean {st['library_ms']:.4f}, plain {st['plain_ms']:.4f}, "
+              f"bound {st['bound_ms']:.4f}), apply {ap_ms:.4f} ms (plain {ap_plain:.4f}, bound "
+              f"{ap_b:.4f}); whole GN+SiLU {whole:.4f} ms vs F.group_norm+F.silu {lib:.4f} ms "
+              f"(eager)")
         if (b, r, cc) == (CHAINS, d * d, mcfg.model_channels):
             common = dict(shape=[b, r, cc], dtype="bfloat16")
-            rec("gn_stats", ms=st["new_ms"], plain_ms=st["plain_ms"], bound_ms=st_b,
-                bound_by=st_by, library_ms=st["var_mean_ms"], earlier_ms=st["triton_chain_ms"],
-                eager_ms=st["new_eager_ms"], max_abs_err=hot_stats["sums_abs"],
-                tolerance=kc.STATS_TOL, **common)
+            rec("gn_stats", ms=st["ms"], plain_ms=st["plain_ms"], bound_ms=st["bound_ms"],
+                bound_by=st["bound_by"], library_ms=st["library_ms"],
+                max_abs_err=hot_stats["sums_abs"], tolerance=kc.STATS_TOL, **common)
             rec("gn_apply", ms=ap_ms, plain_ms=ap_plain, bound_ms=ap_b, bound_by=ap_by,
                 library_ms=None, max_abs_err=worst[("gn_apply", "bfloat16", (b, r, cc))],
                 tolerance="2^-7 |y| + 1e-3", **common)
@@ -3517,17 +3269,14 @@ def main():
         rec(name, **rec_)
 
     # ---- 7. the latent path ----------------------------------------------------------------
-    t0 = time.time()
     code_share = phase_latent_small(torch, np, engine)
-    latent_bf16 = phase_latent_flagship(torch, np, engine, kc, gn, counters)
-    latent_f32 = phase_latent_flagship(torch, np, engine, kc, gn, counters, dtype=torch.float32)
+    latent_bf16 = phase_latent_flagship(torch, np, kc, gn, counters)
+    latent_f32 = phase_latent_flagship(torch, np, kc, gn, counters, dtype=torch.float32)
     latent_kernels = phase_latent_kernels(torch, attn, gn, kc, stats_records)
     phase_latent_cli(np)
-    print(f"phase 7 (the latent path) took {time.time() - t0:.1f} s")
     release_graphs(torch, "phase 7")
 
     # ---- 8. the forward operators ------------------------------------------------------------
-    t0 = time.time()
     phase_operators_card_vs_cpu(torch, np, build_operator, d, c)
     model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
     model.load_state_dict(weights)
@@ -3538,11 +3287,9 @@ def main():
     del model
     kernel_wizard = phase_kernel_wizard(torch, np)
     phase_cli(np, d, "sr4")
-    print(f"phase 8 (the forward operators) took {time.time() - t0:.1f} s")
     release_graphs(torch, "phase 8")
 
     # ---- 9. the rest of the noise-space samplers and solvers ---------------------------------
-    t0 = time.time()
     model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
     model.load_state_dict(weights)
     model = model.to(dev).eval()
@@ -3554,18 +3301,15 @@ def main():
 
     p9 = Phase9(torch, np, engine, attn, gn, kc, model, ddim.make_decoder(model, sched, seq),
                 counters, x_orig, d, c, sigma_0, card, f32_decoder)
-    phase_noise_space(p9, hcfg)
+    phase_noise_space(p9)
     del model, p9.model, p9.decode
     release_graphs(torch, "phase 9 (a)-(f)")
     phase_latent_checkpoint_cli(p9)
-    print(f"phase 9 (the rest of the noise-space samplers and solvers) took "
-          f"{time.time() - t0:.1f} s")
     release_graphs(torch, "phase 9")
 
     # ---- 10. the iterative baselines ------------------------------------------------------------
     import types
 
-    t0 = time.time()
     baseline_errs = phase_baselines_small(torch, np)
     model = unet.UNetModel(mcfg, dtype=torch.bfloat16)  # the main path's flagship, again
     model.load_state_dict(weights)
@@ -3578,11 +3322,9 @@ def main():
     baseline_kernels = phase_baselines_kernels(torch, attn, gn, kc)
     phase_baseline_cli(np, os.path.join(ROOT, "configs", "ffhq.yaml"), "dps", d)
     phase_baseline_cli(np, LATENT_CFG, "resample", d)
-    print(f"phase 10 (the iterative baselines) took {time.time() - t0:.1f} s")
     release_graphs(torch, "phase 10")
 
     # ---- 11. the remaining models and utilities -------------------------------------------------
-    t0 = time.time()
     models_small = phase_models_small(torch, np)
     ddpm_runs = phase_ddpm(torch, np, engine, kc, gn, counters, card)
     cond_runs = phase_conditional(torch, kc, gn, counters, card)
@@ -3590,15 +3332,11 @@ def main():
                                         mcfg, sched, seq, op, y0, card)
     lpips_run = phase_lpips(torch, np, card)
     ddpm_kernels, ddpm_picks = phase_ddpm_kernels(torch, gn, kc)
-    print(f"phase 11 (the remaining models and utilities) took {time.time() - t0:.1f} s")
     release_graphs(torch, "phase 11")
 
     # ---- 12. chains over processes: --mesh and multi-process runs --------------------------------
-    t0 = time.time()
     mesh = phase_mesh_library(torch, np, engine, counters, card)
-    mesh["clis"] = phase_mesh_clis(np)
-    print(f"phase 12 (chains over processes, {MESH} ranks on one card) took "
-          f"{time.time() - t0:.1f} s")
+    phase_mesh_clis(np)
 
     # ---- 13. Stable Diffusion 2.1-base's own sites and launches ----------------------------------
     sd = phase_sd(torch, np, engine, attn, gn, kc, counters, card)
@@ -3660,7 +3398,7 @@ def main():
                         **({"batch1_shapes": baseline_kernels[name]}
                            if name in baseline_kernels else {}),
                         **({"ddpm_shapes": ddpm_kernels[name]} if name in ddpm_kernels else {}),
-                        **({"flagship_shapes": [stats_record(v) for v in stats_records
+                        **({"flagship_shapes": [v for v in stats_records
                                                 if v["path"] == "flagship"]}
                            if name == "gn_stats" else {}),
                         "max_abs_err": r_["max_abs_err"],
@@ -3669,24 +3407,17 @@ def main():
                         "shape": r_["shape"], "dtype": r_["dtype"],
                         "tolerance": r_["tolerance"],
                         **{k: r_[k] for k in ("five_pass_floor_ms", "timing",
-                                              "picked_at_this_shape", "earlier_ms", "eager_ms")
-                           if k in r_}})
+                                              "picked_at_this_shape") if k in r_}})
 
     def path_record(run):
-        return {"energy_grad_evals_per_s": run["evals_per_s"], "peak_memory_gb": run["peak_gb"],
-                "useful_tflop_per_s": run["useful_tflops"], "chains": CHAINS,
-                "attempts": run["attempts"], "n_leapfrog": run["n_leapfrog"],
-                "attempt_s": run["attempt_s"], "dtype": run["dtype"]}
+        return {"chains": CHAINS, **{k: v for k, v in run.items() if k != "launches"}}
 
     print(f"chip_smoke.py took {time.time() - t_start:.1f} s in all")
     print(json.dumps({"kernels": kernels, "main_path": {
-        "energy_grad_evals_per_s": evals_per_s, "peak_memory_gb": peak_gb,
         "chains": CHAINS, "attempts": ATTEMPTS, "n_leapfrog": hcfg.n_leapfrog},
         "latent_path": {**path_record(latent_bf16), "quantizer_codes_differing": code_share},
         "latent_path_f32": path_record(latent_f32), "operator_paths": operator_paths,
         "kernel_wizard": kernel_wizard,
-        "noise_space_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
-                              for k, r_ in p9.records.items()},
         "batch16_gradient_noise": p9.batch_noise,
         "baseline_paths": {k: {f: v for f, v in r_.items() if f != "launches"}
                            for k, r_ in baselines.items()},

@@ -47,11 +47,11 @@
 //   K is scaled once (bf16(k * scale), each thread its own chunks, so the
 //   scaling needs no barrier of its own), V lands during pass 1, and the
 //   passes run with no global load and no barrier. The exp is the plain
-//   version's expf. Measured (scripts/attention_variants.py): 16- or 32-row
-//   blocks are no faster at T = 64, where 4 x 64-row blocks leave half the
-//   SMs idle, and slower at T = 256; an ex2.approx exp is 16-22% faster. By
-//   a count of this code it issues ~27 instructions per logit, 16 of them for
-//   the two expf, and that is what bounds it.
+//   version's expf. Measured on an H100 with one-line variants of this file:
+//   16- or 32-row blocks are no faster at T = 64, where 4 x 64-row blocks
+//   leave half the SMs idle, and slower at T = 256; an ex2.approx exp is
+//   16-22% faster. By a count of this code it issues ~27 instructions per
+//   logit, 16 of them for the two expf, and that is what bounds it.
 //
 //   T > TC_RES_MAX_T (Stable Diffusion's 4096 and 1024 tokens, the latent
 //   U-Net's 1024, any ragged T): TMA, wgmma and warp specialisation. A block
@@ -124,9 +124,10 @@
 //   keep, and the 1e-4 check holds). Blocks are 4 warps; from T = 256 on, at
 //   ch <= 32, a warp takes 32 query rows (two m-tiles, so each K and V
 //   fragment read from shared memory feeds two products), else 16.
-//   What is left: the products themselves. scripts/attention_variants.py
-//   times the exp and the rows a warp against their alternatives, and two
-//   diagnostics that drop the lo products or the split (see PERF.md).
+//   What is left: the products themselves. One-line variants of this file,
+//   timed on an H100, set the exp and the rows a warp against their
+//   alternatives, and two diagnostics dropped the lo products or the split
+//   (see PERF.md).
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder comes from the runtime
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

@@ -123,7 +123,7 @@ __device__ __forceinline__ float4 sum_slabs(const float4* __restrict__ pb, int n
 // (B, 2, C); mean_c, inv_c: (B, C). counters: B int32, all 0 on entry and on exit.
 // At least two blocks an SM: the compiler may then use up to 128 registers a
 // thread, and keeps UNROLL loads in flight without spilling (left to itself it
-// took 48 and spilled; scripts/groupnorm_stats_variants.py times both).
+// took 48 and spilled).
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 2)
 gn_stats_kernel(const uint4* __restrict__ x, float* __restrict__ part, float* __restrict__ sums,

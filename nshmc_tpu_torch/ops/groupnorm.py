@@ -117,9 +117,9 @@ STATS_THREADS = 256     # csrc/groupnorm_stats.cu THREADS: a CTA's threads
 STATS_MAX_C = 2048      # csrc/groupnorm_stats.cu MAX_C
 STATS_MAX_G = 256       # csrc/groupnorm_stats.cu MAX_G
 STATS_UNROLL = 8        # csrc/groupnorm_stats.cu UNROLL: 16-byte loads a thread keeps in flight
-# the CTAs an SM the slabs aim at (scripts/groupnorm_stats_variants.py times 4
-# beside it on the card: 2 is faster at most sites, where fewer slabs shorten
-# the last CTA's finish and the kernel's two blocks an SM run in one wave)
+# the CTAs an SM the slabs aim at (4 timed beside it on an H100: 2 is faster
+# at most sites, where fewer slabs shorten the last CTA's finish and the
+# kernel's two blocks an SM run in one wave)
 STATS_CTAS_PER_SM = 2
 
 
